@@ -5,10 +5,13 @@
 
 Phases, any failure exits non-zero:
 
-1. build  both hand-written CUDA kernels from ``deepspeed_tpu_torch/csrc`` with
-          nvcc (sm_90a), one nvcc per source, in parallel;
-2. check  each kernel against its plain PyTorch version on the card, at the
-          serving path's shapes (tolerances stated beside each check);
+1. build  every hand-written CUDA kernel from ``deepspeed_tpu_torch/csrc`` with
+          nvcc (sm_90a), one nvcc per source, all started together;
+2. check  each kernel against its plain PyTorch version on the card: RMSNorm and
+          paged attention at the serving path's shapes; the three flash-attention
+          kernels (forward, dq, dkv) at the training path's shapes (llama3-1b,
+          GPT-2-125M, Llama-3-8B heads, a ragged S = 1000 with a keep-mask), each
+          in bf16 and fp32 (tolerances stated beside each check);
 3. serve  Llama-3-8B at full width and depth (random bf16 weights from a seed,
           a 2048 x 16-slot bf16 KV pool) through ``InferenceEngineV2.generate``:
           8 prompts of 32-1000 tokens, 64 new tokens each, decode chains of 8,
@@ -16,10 +19,26 @@ Phases, any failure exits non-zero:
           just after; every launch of the run must come from the path (65
           RMSNorm and 32 paged-attention launches per forward). One prefill
           step's last-token logits are then held against the same step run
-          through the plain versions.
-          A decode chain of the same engine is then profiled (device time by
-          kernel, the device's busy share);
-4. time   each kernel with CUDA events beside its bound, its plain version and
+          through the plain versions, and a decode chain is profiled (device
+          time by kernel, the device's busy share). Its memory is freed after;
+4. train  Llama-3.2-1B (the ``llama3-1b`` preset) at full width and depth
+          through ``initialize`` / ``train_batch``, with the JAX package's
+          headline training config (bench.py) less its ``hbm_guard``,
+          ``diagnostics`` and ``telemetry`` sections, which are not ported:
+          micro 4, gradient accumulation 2, seq 2048, bf16, AdamW (lr 1e-4,
+          weight decay 0.1), ZeRO stage 1, clipping 1.0. 2 warm-up and 3
+          timed steps on one numpy-seeded batch, the counters zeroed just
+          before and read just after: the loss must be finite and fall, and
+          the launches must equal 16 per micro-step for each flash kernel and
+          33 for RMSNorm. One more step is profiled;
+5. slice  one micro-step (4 x 2048, a padded row) of a 2-layer, full-width
+          llama3-1b through the kernels and through the plain versions: the
+          loss and every gradient leaf compared;
+6. train  the GPT-2-125M headline (bench.py's ``GPT2_HEADLINE_DIMS`` with
+          ``scan_layers=False, fused_ce=False``): micro 4, gradient
+          accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
+          flash kernel per micro-step), one more step profiled;
+7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
@@ -31,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -42,14 +62,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import deepspeed_tpu_torch
 import deepspeed_tpu_torch.inference.paged as paged_mod
 import deepspeed_tpu_torch.models.transformer as transformer_mod
 from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_forward
 from deepspeed_tpu_torch.inference.ragged import StateManager, build_ragged_batch
-from deepspeed_tpu_torch.models import PRESETS, init_params
+from deepspeed_tpu_torch.models import PRESETS, CausalLM, TransformerConfig, causal_lm_spec, init_params
+from deepspeed_tpu_torch.models.transformer import flatten
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import norms as norms_mod
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of bytes / memory rate and operations / peak rate for the type.
@@ -71,8 +96,53 @@ RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 # bf16. Every batch is also checked in fp32, where only summation order
 # differs, so a streaming fault cannot hide under bf16 rounding.
 PAGED_TOL = {torch.bfloat16: (2e-2, 2e-2, 2e-2), torch.float32: (2e-5, 2e-5, 1e-4)}
+# flash kernels vs plain versions: the largest relative L2 error of one (b, s,
+# h) row vector [hd] of out, dq, dk and dv, each row's norm floored at 1e-3 of
+# the RMS row norm (rows that cancel to ~0: dq of query 0, which sees one key,
+# is p * (dO.v0 - dO.o) with o = v0). bf16: P and dS are rounded to bf16 before
+# their products in both, but the kernel's sums run in another order and its
+# fp32 output is rounded once; fp32: summation order only. lse (fp32 in both,
+# from the same operands) by absolute error over rows with a visible key. Rows
+# with no visible key must be exactly 0 (lse the finfo(float32).min sentinel),
+# and so must dk and dv of keys the keep-mask drops. Limits set from the
+# readings of the first full run (H100, 700 W) with a margin of >= 2.7x: bf16
+# max 7.4e-3 (dq, Llama-3-8B heads), fp32 max 1.8e-6 (out; dq, dk and dv
+# matched bit for bit), lse max 1.9e-6 (one fp32 ulp at |lse| ~ 16).
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+LSE_TOL = 1e-5
 LOGITS_REL_L2 = 5e-2  # kernels vs plain versions through 32 bf16 layers
+# 2-layer llama3-1b micro-step, kernels vs plain versions in bf16: relative
+# error of the loss, and relative L2 error of each gradient leaf (first full
+# run: 4.4e-6 and at most 1.27e-2, the embedding's; the limits leave 20x and 4x)
+SLICE_LOSS_REL = 1e-4
+SLICE_GRAD_REL_L2 = 5e-2
 SPIN_CYCLES = 4_000_000  # ~2 ms of GPU clock: longer than the host needs to enqueue a timed group
+
+# The JAX package's headline GPT-2-125M dimensions (bench.py GPT2_HEADLINE_DIMS)
+GPT2_HEADLINE_DIMS = dict(
+    vocab_size=50304, hidden_size=768, intermediate_size=3072,
+    num_layers=12, num_heads=12, max_seq_len=1024,
+    norm="layernorm", activation="gelu", position="learned",
+    tie_embeddings=True,
+)
+# bench.py's training config without hbm_guard / diagnostics / telemetry
+TRAIN_CONFIG = {
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    "zero_optimization": {"stage": 1},
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "steps_per_print": 10_000,
+}
+TRAIN_WARMUP, TRAIN_TIMED = 2, 3
+# flash-attention check shapes: [B, S, heads, hd] of the training path's models
+FLASH_SETS = {
+    "llama3-1b": dict(B=4, S=2048, H=32, kvH=8, hd=64),
+    "gpt2-125m": dict(B=4, S=1024, H=12, kvH=12, hd=64),
+    "llama3-8b heads": dict(B=1, S=2048, H=32, kvH=8, hd=128),
+    # right padding: row 1 keeps 613 keys, row 2 none (every query row masked)
+    "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
+}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -87,6 +157,18 @@ def card_line() -> str:
         return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
     except (OSError, subprocess.TimeoutExpired, IndexError):
         return "nvidia-smi unavailable"
+
+
+def launch_counts() -> dict:
+    return {"rms_norm": rms_norm.launches, "paged_attention": paged_attention.launches,
+            **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
+
+
+def zero_counts() -> None:
+    rms_norm.launches = 0
+    paged_attention.launches = 0
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
 
 
 def compare_rms(got, want, dtype):
@@ -164,6 +246,48 @@ def paged_bytes_and_flops(batch, lens):
     return kv + other, flops
 
 
+def run_flash_kernels(qs, k, v, do, keep):
+    """Forward, delta (plain fp32, outside the kernels, as in JAX), dq, dkv."""
+    out, lse = fa.flash_fwd(qs, k, v, keep)
+    delta = fa.flash_delta(do, out)
+    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta)
+    return out, lse, delta, dq, dk, dv
+
+
+def check_flash(dev, shape, dtype):
+    """The three flash kernels against their plain versions on the same
+    inputs (the plain dq/dkv take the kernel's lse and delta, so each kernel
+    is held alone). Returns (ok, {name: (row rel L2, max abs)}, lse error)."""
+    q, k, v, do, keep = flash_inputs(dev, **shape)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    qs = fa.prescale_q(q)
+    out, lse, delta, dq, dk, dv = run_flash_kernels(qs, k, v, do, keep)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_fwd_reference(qs, k, v, keep)
+    want_dq = fa.flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta)
+    readings = {}
+    ok = True
+    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        rel = row_rel_l2(got, want)
+        readings[name] = (rel, float((got.float() - want.float()).abs().max()))
+        ok &= bool(torch.isfinite(got).all()) and got.dtype == dtype and rel <= FLASH_TOL[dtype]
+    B, S = q.shape[:2]
+    # a query row sees a key iff some key j <= i is kept; keys past S do not exist
+    live = (torch.ones(B, S, dtype=torch.int32, device=dev) if keep is None else keep).cumsum(1) > 0
+    lse_err = float((lse - want_lse).abs().transpose(1, 2)[live].max())
+    ok &= lse_err <= LSE_TOL
+    dead = ~live
+    ok &= bool((out[dead] == 0).all()) and bool((dq[dead] == 0).all())
+    ok &= bool((lse.transpose(1, 2)[dead] == fa.NEG_INF).all())
+    if keep is not None:
+        dropped = keep == 0
+        ok &= bool((dk[dropped] == 0).all()) and bool((dv[dropped] == 0).all())
+    return ok, readings, lse_err
+
+
 # ------------------------------------------------------------------ timing
 def time_fn(fn, iters=100, warmup=10, flush=None):
     """Median device milliseconds per call, by CUDA events. The GPU is held
@@ -190,27 +314,22 @@ def time_fn(fn, iters=100, warmup=10, flush=None):
     return float(np.median(times))
 
 
-def profile_decode_chain(engine, prompts, k):
-    """Two K-step decode chains over ``prompts`` (prefilled first): the first
-    timed alone, the second under torch.profiler (device activity only: host
-    op tracing would slow the host-bound chain), its wall time and its device
-    time by kernel both from that one chain. Returns (profiled chain wall ms,
-    its device kernel ms, unprofiled chain wall ms, rows)."""
-    uids = list(range(len(prompts)))
-    engine.put(uids, prompts)
+def device_profile(fn):
+    """``fn`` run once timed alone and once under torch.profiler (device
+    activity only: host op tracing would slow a host-bound loop), its wall
+    time and its device time by kernel both from that one run. Returns
+    (profiled wall ms, its device kernel ms, unprofiled wall ms, rows)."""
 
-    def chain_ms():
+    def wall_ms():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.decode_chain(uids, [0] * len(uids), [k] * len(uids), k)
+        fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    plain_wall_ms = chain_ms()
+    plain_wall_ms = wall_ms()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        wall_ms = chain_ms()
-    for u in uids:
-        engine.flush(u)
+        wall = wall_ms()
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -221,38 +340,25 @@ def profile_decode_chain(engine, prompts, k):
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall_ms, sum(r[0] for r in rows), plain_wall_ms, rows
+    return wall, sum(r[0] for r in rows), plain_wall_ms, rows
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", help="also write the results as JSON to this file")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    card = card_line()
-    log(card)  # the card's name and power limit, as nvidia-smi gives them
-    results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
-    max_err = {"rms_norm": 0.0, "paged_attention": 0.0}
+def log_profile(tag, what, wall_ms, busy_ms, plain_wall_ms, rows):
+    log(f"[{tag}] {what} under the profiler: wall {wall_ms:.2f} ms, device kernels "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f} %; the same unprofiled: wall "
+        f"{plain_wall_ms:.2f} ms (profiler overhead {wall_ms - plain_wall_ms:+.2f} ms)")
+    for dev_ms, count, name in rows[:12]:
+        log(f"[{tag}]   {dev_ms:9.3f} ms  {count:6d}x  {name[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "unprofiled_wall_ms": plain_wall_ms,
+            "top": [list(r) for r in rows[:20]]}
+
+
+# ------------------------------------------------------------------ phases
+def phase_checks(dev, max_err):
+    """Phase 2: each kernel against its plain version. Returns (failures,
+    the paged-attention batches reused for timing)."""
     failures = []
-
-    # ---- 1. build
-    t0 = time.perf_counter()
-    built = op_builder.build_all()
-    build_s = time.perf_counter() - t0
-    log(f"[build] compiled {built or 'nothing (cached)'} in {build_s:.1f} s")
-    for name, text in op_builder.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build:{name}] {line.strip()}")
-    results["build_s"] = build_s
-
-    # ---- 2. kernel checks against the plain versions
     rng = np.random.default_rng(0)
     for rows in (8, 8 * 512, 4099):
         for dtype in (torch.bfloat16, torch.float32):
@@ -290,11 +396,25 @@ def main(argv=None) -> int:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"paged_attention {label} {dtype}")
-    if failures:
-        log(f"[check] FAILED: {failures}")
-        return 1
+    for label, shape in FLASH_SETS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            ok, readings, lse_err = check_flash(dev, shape, dtype)
+            if dtype == torch.bfloat16:
+                for kernel, parts in (("flash_fwd", ("out",)), ("flash_bwd_dq", ("dq",)),
+                                      ("flash_bwd_dkv", ("dk", "dv"))):
+                    max_err[kernel] = max([max_err[kernel]] + [readings[p][1] for p in parts])
+            text = ", ".join(f"{n} {r:.3e} (max_abs {a:.3e})" for n, (r, a) in readings.items())
+            log(f"[check] flash {label} {str(dtype)[6:]}: row rel L2 {text}; lse max_abs "
+                f"{lse_err:.3e}; tol {FLASH_TOL[dtype]} / lse {LSE_TOL} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash {label} {dtype}")
+            torch.cuda.empty_cache()
+    return failures, checks
 
-    # ---- 3. the slice: Llama-3-8B through InferenceEngineV2.generate
+
+def phase_serve(dev, results):
+    """Phase 3: Llama-3-8B through InferenceEngineV2.generate. Returns the
+    launch counts of the counted run, or None on failure."""
     cfg = dataclasses.replace(PRESETS["llama3-8b"], dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
@@ -324,25 +444,24 @@ def main(argv=None) -> int:
     engine._put_sample = timed(engine._put_sample, "prefill")
     engine.decode_chain = timed(engine.decode_chain, "decode")
     torch.cuda.reset_peak_memory_stats()
-    rms_norm.launches = 0
-    paged_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new_tokens=64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rms_norm": rms_norm.launches, "paged_attention": paged_attention.launches}
+    launches = launch_counts()
     forwards = engine.model_forwards
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = {"rms_norm": (2 * cfg.num_layers + 1) * forwards,
-              "paged_attention": cfg.num_layers * forwards}
+    expect = dict({k: 0 for k in launches}, rms_norm=(2 * cfg.num_layers + 1) * forwards,
+                  paged_attention=cfg.num_layers * forwards)
     log(f"[serve] prompts {plens}; {forwards} forwards, {engine.dispatch_count} dispatches, "
         f"{engine.host_sync_count} host syncs, launches {launches} (expected {expect})")
     if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
         log(f"[serve] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
-        return 1
-    if launches != expect or min(launches.values()) == 0:
+        return None
+    if launches != expect or min(launches["rms_norm"], launches["paged_attention"]) == 0:
         log("[serve] FAILED: kernel launch counts do not match the forwards run")
-        return 1
+        return None
     prefill_tokens = sum(plens)
     results["serve"] = {
         "prompt_lens": plens, "forwards": forwards, "launches": launches, "wall_s": wall,
@@ -366,16 +485,16 @@ def main(argv=None) -> int:
         b = build_ragged_batch(StateManager(64, bs, max_blocks_per_seq=P), [0, 1, 2],
                                step_prompts, P, row_bucket=8, chunk_bucket=16)
         arrs = [torch.from_numpy(a).to(dev) for a in (b.tokens, b.positions, b.new_lens, b.block_tables)]
-        before = (rms_norm.launches, paged_attention.launches)
+        before = launch_counts()
         if mode == "kernels":
             out, _ = ragged_forward(engine.params, cfg, pool, *arrs, bs)
         else:
             with mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
                     mock.patch.object(paged_mod, "paged_attention", paged_attention_reference):
                 out, _ = ragged_forward(engine.params, cfg, pool, *arrs, bs)
-            if (rms_norm.launches, paged_attention.launches) != before:
+            if launch_counts() != before:
                 log("[serve] FAILED: the plain run launched a kernel")
-                return 1
+                return None
         logits[mode] = out[:3].float()
         del pool
     diff = logits["kernels"] - logits["plain"]
@@ -386,26 +505,157 @@ def main(argv=None) -> int:
     results["serve"]["logits_rel_l2"] = rel
     if not (math.isfinite(rel) and rel <= LOGITS_REL_L2):
         log("[serve] FAILED: prefill logits disagree with the plain versions")
-        return 1
+        return None
 
-    # ---- where a decode chain's time goes (after the counted run)
-    wall_ms, busy_ms, plain_wall_ms, rows = profile_decode_chain(engine, prompts, 8)
-    if busy_ms <= 0:
+    # where a decode chain's time goes (after the counted run)
+    uids = list(range(len(prompts)))
+    engine.put(uids, prompts)
+    prof = device_profile(lambda: engine.decode_chain(uids, [0] * len(uids), [8] * len(uids), 8))
+    for u in uids:
+        engine.flush(u)
+    if prof[1] <= 0:
         log("[profile] FAILED: the profiler saw no device time in the decode chain")
-        return 1
-    log(f"[profile] decode chain (8 rows x 8 steps) under the profiler: wall {wall_ms:.2f} ms, "
-        f"device kernels {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f} %; the same chain unprofiled: wall "
-        f"{plain_wall_ms:.2f} ms (profiler overhead {wall_ms - plain_wall_ms:+.2f} ms)")
-    for dev_ms, count, name in rows[:12]:
-        log(f"[profile]   {dev_ms:9.3f} ms  {count:6d}x  {name[:90]}")
-    results["profile_decode_chain"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                                       "unprofiled_wall_ms": plain_wall_ms,
-                                       "top": [list(r) for r in rows[:20]]}
-    del engine, params, logits
-    torch.cuda.empty_cache()
+        return None
+    results["profile_decode_chain"] = log_profile("profile", "decode chain (8 rows x 8 steps)",
+                                                  *prof)
+    return launches
 
-    # ---- 4. per-kernel timing at the slice's shapes
+
+def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profile=False):
+    """Phases 4 and 6: ``initialize`` + ``train_batch`` at full size. Returns
+    the launch counts of the counted steps, or None on failure."""
+    t0 = time.perf_counter()
+    masters = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=causal_lm_spec(cfg, example_seq_len=seq),
+        config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
+                    gradient_accumulation_steps=gas),
+        model_parameters=masters, device=dev)
+    del masters
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in engine.params.values())
+    log(f"[{tag}] initialize: {n_params / 1e9:.4f} B params (JAX count {cfg.num_params() / 1e9:.4f} B), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s; "
+        f"batch {engine.train_batch_size} x {seq} (micro {micro}, gas {gas})")
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (engine.train_batch_size, seq),
+                                       dtype=np.int32)}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    zero_counts()
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(metrics["loss"])
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    grad_norm = float(metrics["grad_norm"])
+    micro_steps = gas * (TRAIN_WARMUP + TRAIN_TIMED)
+    expect = {k: expect_per_micro.get(k, 0) * micro_steps for k in launches}
+    timed = float(np.median(step_s[TRAIN_WARMUP:]))
+    tokens = engine.train_batch_size * seq
+    tok_s = tokens / timed
+    fpt = cfg.flops_per_token(seq)
+    mfu = tok_s * fpt / PEAK_FLOPS[torch.bfloat16]
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}, last grad_norm {grad_norm:.4f}; "
+        f"step times {[round(x, 4) for x in step_s]} s")
+    log(f"[{tag}] step {timed:.4f} s (median of {TRAIN_TIMED}), {tok_s:.1f} tokens/s, MFU "
+        f"{100 * mfu:.2f} % ({fpt / 1e9:.3f} GFLOP/token, 989 TFLOP/s bf16), peak memory "
+        f"{peak_gb:.2f} GB; launches {launches} (expected {expect})")
+    results[tag] = {"losses": losses, "step_s": step_s, "median_step_s": timed, "tokens_per_s": tok_s,
+                    "mfu": mfu, "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                    "launches": launches, "grad_norm": grad_norm}
+    if not all(math.isfinite(x) for x in losses + [grad_norm]) or not losses[-1] < losses[0]:
+        log(f"[{tag}] FAILED: the loss is not finite or did not fall")
+        return None
+    if launches != expect or min(v for k, v in launches.items() if expect[k]) == 0:
+        log(f"[{tag}] FAILED: kernel launch counts do not match the micro-steps run")
+        return None
+    if profile:
+        prof = device_profile(lambda: engine.train_batch(batch))
+        if prof[1] <= 0:
+            log(f"[{tag}] FAILED: the profiler saw no device time in the step")
+            return None
+        results[tag]["profile_step"] = log_profile(tag, "one training step", *prof)
+    del engine, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_check(dev, results) -> bool:
+    """Phase 5: loss and gradients of one micro-step of a 2-layer full-width
+    llama3-1b, through the kernels and through the plain versions."""
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], num_layers=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
+    flat = flatten(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    model = CausalLM(cfg)
+    rng = np.random.default_rng(2)
+    B, S = 4, 2048
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+    mask[1, 1500:] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+
+    def step():
+        loss, _ = model(params, batch, train=True)
+        return loss.detach().float(), torch.autograd.grad(loss, list(flat.values()))
+
+    zero_counts()
+    loss_k, grads_k = step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect = dict({k: 0 for k in launches}, rms_norm=2 * cfg.num_layers + 1,
+                  **{k: cfg.num_layers for k in FLASH_KERNELS})
+    with mock.patch.object(fa, "flash_fwd", fa.flash_fwd_reference), \
+            mock.patch.object(fa, "flash_bwd_dq", fa.flash_bwd_dq_reference), \
+            mock.patch.object(fa, "flash_bwd_dkv", fa.flash_bwd_dkv_reference), \
+            mock.patch.object(norms_mod, "rms_norm_fwd", rms_norm_reference):
+        loss_p, grads_p = step()
+    torch.cuda.synchronize()
+    plain_launches = launch_counts()
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    rels = {}
+    for path, gk, gp in zip(flat, grads_k, grads_p):
+        rels[path] = float((gk.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30))
+    worst = max(rels, key=rels.get)
+    ok = (launches == expect and plain_launches == launches and math.isfinite(loss_rel)
+          and loss_rel <= SLICE_LOSS_REL and all(r <= SLICE_GRAD_REL_L2 for r in rels.values())
+          and all(bool(torch.isfinite(g).all()) for g in grads_k))
+    log(f"[slice] 2-layer llama3-1b micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
+        f"{float(loss_p):.5f} (rel {loss_rel:.2e}, bound {SLICE_LOSS_REL}); gradient leaves rel L2 "
+        f"max {rels[worst]:.3e} at {worst} (bound {SLICE_GRAD_REL_L2}); launches {launches} "
+        f"(expected {expect}), plain run launched none: {plain_launches == launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    for path, r in sorted(rels.items()):
+        log(f"[slice]   {path}: {r:.3e}")
+    results["slice"] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+                        "loss_rel": loss_rel, "grad_rel_l2": rels}
+    return ok
+
+
+def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel):
+    """Bytes the kernel must move (each input read once, each output written
+    once) and the flops of its products over the S(S+1)/2 causal pairs."""
+    q_bytes, kv_bytes, row_bytes = B * S * H * hd * itemsize, B * S * kvH * hd * itemsize, B * H * S * 4
+    pairs = S * (S + 1) // 2
+    if kernel == "flash_fwd":  # q, k, v -> out, lse; products q.k, p.v
+        return 2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * 2 * B * H * pairs * hd
+    if kernel == "flash_bwd_dq":  # q, k, v, dO, lse, delta -> dq; q.k, dO.v, ds.k
+        return 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * 2 * B * H * pairs * hd
+    # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
+    return 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * 2 * B * H * pairs * hd
+
+
+def phase_time(dev, checks, launches, max_err, results):
+    """Phase 7: per-kernel device times at the main path's shapes."""
     l2_flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
 
     def flush():
@@ -468,7 +718,136 @@ def main(argv=None) -> int:
                         launches=launches["paged_attention"], max_abs_err=max_err["paged_attention"],
                         shape="decode q [8, 1, 32, 128], lens 1-1000, bf16",
                         **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+
+    # the flash kernels at the llama3-1b training shape, bf16, no keep-mask
+    shape = FLASH_SETS["llama3-1b"]
+    B, S, H, kvH, hd = (shape[k] for k in ("B", "S", "H", "kvH", "hd"))
+    q, k, v, do, _ = flash_inputs(dev, **shape)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    qs = fa.prescale_q(q)
+    out, lse, delta, _, _, _ = run_flash_kernels(qs, k, v, do, None)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(qs, k, v, None),
+                      lambda: fa.flash_fwd_reference(qs, k, v, None)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta),
+                         lambda: fa.flash_bwd_dq_reference(qs, k, v, None, do, lse, delta)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta),
+                          lambda: fa.flash_bwd_dkv_reference(qs, k, v, None, do, lse, delta)),
+    }
+    # library yardstick (never called by the port): SDPA in its [B, H, S, hd]
+    # layout, forward alone and its whole backward
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_fwd = time_fn(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True), iters=100)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+                       iters=100)
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkv": None}
+    sources = {"flash_fwd": ("flash_attention_fwd.cu", 216),
+               "flash_bwd_dq": ("flash_attention_bwd_dq.cu", 364),
+               "flash_bwd_dkv": ("flash_attention_bwd_dkv.cu", 432)}
+    for name, (kernel_fn, plain_fn) in calls.items():
+        nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, name)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t = {"ms": time_fn(kernel_fn, iters=100), "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library[name]}
+        timing[f"{name}[{B},{S},{H},{kvH},{hd}]"] = t
+        lib_text = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"[time] {name} B {B} S {S} H {H} kvH {kvH} hd {hd} bf16: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, SDPA forward {lib_text}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s)")
+        src, line = sources[name]
+        kernels.append(dict(name=name, route="cuda", source=f"deepspeed_tpu_torch/csrc/{src}",
+                            replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+                            launches=launches[name], max_abs_err=max_err[name],
+                            shape=f"q [{B}, {S}, {H}, {hd}], kv heads {kvH}, bf16",
+                            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms")}))
+    bwd_sum = timing[f"flash_bwd_dq[{B},{S},{H},{kvH},{hd}]"]["ms"] + \
+        timing[f"flash_bwd_dkv[{B},{S},{H},{kvH},{hd}]"]["ms"]
+    timing["sdpa_backward_vs_dq_plus_dkv"] = {"sdpa_bwd_ms": sdpa_bwd, "dq_plus_dkv_ms": bwd_sum}
+    log(f"[time] backward: SDPA's whole backward {sdpa_bwd:.4f} ms beside dq + dkv "
+        f"{bwd_sum:.4f} ms (delta, plain fp32, excluded)")
     results["timing"] = timing
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the results as JSON to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    card = card_line()
+    log(card)  # the card's name and power limit, as nvidia-smi gives them
+    results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
+    max_err = {"rms_norm": 0.0, "paged_attention": 0.0, **{k: 0.0 for k in FLASH_KERNELS}}
+
+    # ---- 1. build
+    t0 = time.perf_counter()
+    built = op_builder.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[build] compiled {built or 'nothing (cached)'} in {build_s:.1f} s")
+    for name, text in op_builder.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build:{name}] {line.strip()}")
+    results["build_s"] = build_s
+
+    # ---- 2. kernel checks against the plain versions
+    failures, checks = phase_checks(dev, max_err)
+    if failures:
+        log(f"[check] FAILED: {failures}")
+        return 1
+
+    # ---- 3. serving, then its memory is freed
+    serve_launches = phase_serve(dev, results)
+    if serve_launches is None:
+        return 1
+    gc.collect()  # the engine's timing wrappers hold it in a reference cycle
+    torch.cuda.empty_cache()
+
+    # ---- 4. training Llama-3.2-1B
+    llama = dataclasses.replace(PRESETS["llama3-1b"], dtype=torch.bfloat16)
+    per_micro = dict({k: llama.num_layers for k in FLASH_KERNELS},
+                     rms_norm=2 * llama.num_layers + 1)
+    llama_launches = phase_train(dev, "train llama3-1b", llama, micro=4, seq=2048, gas=2,
+                                 expect_per_micro=per_micro, results=results, profile=True)
+    if llama_launches is None:
+        return 1
+
+    # ---- 5. whole-slice check, kernels vs plain versions
+    if not phase_slice_check(dev, results):
+        log("[slice] FAILED: the kernels' micro-step disagrees with the plain versions'")
+        return 1
+    torch.cuda.empty_cache()
+
+    # ---- 6. training the GPT-2-125M headline
+    gpt2 = TransformerConfig(**GPT2_HEADLINE_DIMS, scan_layers=False, fused_ce=False,
+                             dtype=torch.bfloat16)
+    gpt2_launches = phase_train(dev, "train gpt2-125m", gpt2, micro=4, seq=1024, gas=8,
+                                expect_per_micro={k: gpt2.num_layers for k in FLASH_KERNELS},
+                                results=results, profile=True)
+    if gpt2_launches is None:
+        return 1
+
+    # ---- 7. per-kernel timing at the main path's shapes; launches summed
+    # over the counted runs of the paths (serving, both trainings)
+    launches = {k: serve_launches[k] + llama_launches[k] + gpt2_launches[k] for k in serve_launches}
+    results["launches_by_path"] = {"serve": serve_launches, "train llama3-1b": llama_launches,
+                                   "train gpt2-125m": gpt2_launches}
+    kernels = phase_time(dev, checks, launches, max_err, results)
+    if any(kernel["launches"] == 0 for kernel in kernels):
+        log("[time] FAILED: a kernel was launched no time on the main path")
+        return 1
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

@@ -9,9 +9,14 @@ first use (``ops/op_builder.py``). Entry points run on the card unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions run.
 
 Ported so far: serving a dense Llama-style decoder through
-``inference.InferenceEngineV2`` (RMSNorm and paged attention kernels).
+``inference.InferenceEngineV2`` (RMSNorm and paged attention kernels), and
+training Llama- and GPT-2-style decoders on one device through
+``initialize(model=models.causal_lm_spec(cfg), config=...)`` and
+``engine.train_batch`` (flash-attention forward, dq and dkv kernels, and
+the RMSNorm kernel with its backward).
 """
 
+from deepspeed_tpu_torch.runtime.engine_builder import initialize
 from deepspeed_tpu_torch.version import __version__
 
-__all__ = ["__version__"]
+__all__ = ["__version__", "initialize"]

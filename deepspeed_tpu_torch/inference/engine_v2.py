@@ -97,6 +97,18 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
         return _DTYPES[self.dtype.lower()]
 
 
+def _check_servable(cfg: TransformerConfig) -> None:
+    """The serving forward carries the dense Llama-style decoder only."""
+    llama = {"norm": (cfg.norm, "rmsnorm"), "activation": (cfg.activation, "silu_glu"),
+             "position": (cfg.position, "rope"), "biases": (cfg.biases, (False, False, False)),
+             "tie_embeddings": (cfg.tie_embeddings, False)}
+    for name, (got, want) in llama.items():
+        if got != want:
+            raise NotImplementedError(
+                f"TransformerConfig.{name}={got!r}: the PyTorch port serves the dense "
+                f"Llama-style decoder only ({name}={want!r})")
+
+
 class InferenceEngineV2:
     """uid-keyed continuous batching over a paged KV pool."""
 
@@ -111,6 +123,7 @@ class InferenceEngineV2:
             config = {}
         if isinstance(config, dict):
             config = RaggedInferenceConfig.from_dict(config)
+        _check_servable(model_config)
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = config

@@ -15,14 +15,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.transformer import TransformerConfig, _apply_norm
-
-
-def _proj(x: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x [..., In] @ kernel [In, *out] -> [..., *out]."""
-    k = kernel.to(dtype)
-    out = x.reshape(-1, k.shape[0]) @ k.reshape(k.shape[0], -1)
-    return out.reshape(*x.shape[:-1], *k.shape[1:])
+from deepspeed_tpu_torch.models.transformer import TransformerConfig, _apply_norm, _proj
 
 
 def _qkv(lp: Dict, cfg: TransformerConfig, x: torch.Tensor):

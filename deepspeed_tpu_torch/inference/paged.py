@@ -29,7 +29,12 @@ import torch
 
 from deepspeed_tpu_torch.inference.model import _attn_out, _logits, _mlp, _qkv
 from deepspeed_tpu_torch.inference.sampling import sample_logits
-from deepspeed_tpu_torch.models.transformer import TransformerConfig, _apply_norm, apply_qk_rope
+from deepspeed_tpu_torch.models.transformer import (
+    TransformerConfig,
+    _apply_norm,
+    apply_qk_rope,
+    layer_slice,
+)
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -69,11 +74,6 @@ def _slot_ids(block_tables: torch.Tensor, positions: torch.Tensor, valid: torch.
     return torch.where(valid, slot, torch.full_like(slot, trash))
 
 
-def _layer(layers: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked ``[L, ...]`` params (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
-
-
 def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
                     tokens: torch.Tensor, positions: torch.Tensor, new_lens: torch.Tensor,
                     block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -90,7 +90,7 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
     x = params["embed"]["embedding"][tokens.long()].to(cfg.dtype)
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        lp = _layer(layers, i)
+        lp = layer_slice(layers, i)
         h = _apply_norm(lp["attn_norm"], cfg, x)
         q, k, v = _qkv(lp["attn"], cfg, h)
         q, k = apply_qk_rope(cfg, q, k, positions)

@@ -1,11 +1,17 @@
 """RMSNorm (counterpart of ``deepspeed_tpu/ops/norms.py`` and the Pallas
-``ops/pallas/norms.py:_rms_fwd_kernel``).
+``ops/pallas/norms.py:_rms_fwd_kernel`` with its custom VJP).
 
-``rms_norm`` is the one wrapper the model calls. On a CPU tensor it runs
+``rms_norm`` is the one differentiable op the model calls. Its forward is the
+kernel wrapper ``rms_norm_fwd``: on a CPU tensor it runs
 ``rms_norm_reference``, the plain PyTorch version; on a CUDA tensor it
 launches the hand-written kernel ``csrc/rms_norm.cu`` or raises. Both follow
 the JAX package's math: fp32 statistics, the scale multiplied in fp32, the
 output in ``x.dtype``.
+
+The backward ports ``_rms_p_bwd`` (``ops/pallas/norms.py:76``) in plain
+PyTorch, in fp32. In the JAX package that backward is jnp, not a Pallas
+kernel, so plain PyTorch is its faithful port on every device, not a plain
+version standing in for a kernel.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ def rms_norm_reference(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) 
     return (y * scale.float()).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Row RMSNorm over the last dim of ``x`` (any leading shape)."""
+def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm forward over the last dim of ``x`` (any leading shape)."""
     if x.device.type == "cpu":
         return rms_norm_reference(x, scale, eps)
     if x.device.type != "cuda":
@@ -55,6 +61,40 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
         raise RuntimeError(f"rms_norm kernel launch failed: cudaError {err}")
     rms_norm.launches += 1
     return out
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float):
+    """``_rms_p_bwd`` in fp32: dx = inv * (gy - x_hat * mean(gy * x_hat)) with
+    gy = g * scale, dscale = sum over rows of g * x_hat; cast to the input
+    dtypes."""
+    xf, gf, s = x.float(), g.float(), scale.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gy = gf * s
+    dx = inv * (gy - xhat * (gy * xhat).mean(dim=-1, keepdim=True))
+    dscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x = x.contiguous()
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm over the last dim of ``x`` (any leading shape),
+    differentiable in ``x`` and ``scale``."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 rms_norm.launches = 0

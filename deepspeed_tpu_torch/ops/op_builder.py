@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``deepspeed_tpu/ops/op_builder.py``).
 
-At first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
+At first use each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it
+includes) is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, written under
 ``build/deepspeed_tpu_torch/`` beside the package, and loaded with
-``ctypes``. The file name carries a hash of the source and the flags, so an
+``ctypes``. The file name carries a hash of the source, the headers and the
+flags, so an
 edited kernel is rebuilt and an unchanged one is reused. ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them together. A failed
 build raises with ``nvcc``'s own error output.
@@ -53,6 +55,19 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
+    "flash_attention_fwd": {
+        # q, k, v, keep (or NULL), out, lse, B, S, H, kvH, hd, dtype, stream
+        "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_attention_bwd_dq": {
+        # q, k, v, keep, dout, lse, delta, dq, B, S, H, kvH, hd, scale, dtype, stream
+        "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention_bwd_dkv": {
+        # q, k, v, keep, dout, lse, delta, dk, dv, B, S, H, kvH, hd, dk_scale, dtype, stream
+        "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _F, _I, _P],
+    },
 }
 
 
@@ -75,7 +90,8 @@ BUILD_LOGS: Dict[str, str] = {}  # name -> nvcc output of its last build
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -105,7 +105,13 @@ def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size
     """GQA attention of q ``[N, C, H, hd]`` over one layer's paged pool.
 
     ``new_lens [N]`` int32 (live new tokens per row, 0 for a pad row) bounds
-    the pages the kernel reads to the row's live length."""
+    the pages the kernel reads to the row's live length. It has no backward
+    (nor has the JAX kernel): with grad mode on, an input that requires grad
+    raises instead of returning an output with no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, pool_k_l, pool_v_l)):
+        raise NotImplementedError(
+            "paged_attention has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad")
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions,
                                          block_size, new_lens)

@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: it imports no JAX, flax, pydantic or
+"""The PyTorch port stands alone: it imports no JAX, flax, optax, pydantic or
 ``deepspeed_tpu``, its entry points refuse to fall back to the CPU quietly,
 and settings outside the ported slice raise ``NotImplementedError``."""
 
@@ -12,12 +12,20 @@ from pathlib import Path
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import InferenceEngineV2, RaggedInferenceConfig, init_pool
-from deepspeed_tpu_torch.models import PRESETS, TransformerConfig, init_params
+from deepspeed_tpu_torch.models import (
+    PRESETS,
+    TransformerConfig,
+    causal_lm_spec,
+    init_params,
+    params_from_numpy,
+    params_to_numpy,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "deepspeed_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "pydantic", "deepspeed_tpu")
 
 _BLOCKED_IMPORT = f"""
 import pkgutil, sys
@@ -76,6 +84,14 @@ def test_entry_points_default_to_cuda():
         init_pool(cfg, 4, 16, torch.float32)
     eng = InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
     assert eng.pool.k.device.type == "cpu"
+    train_cfg = {"train_micro_batch_size_per_gpu": 1, "optimizer": {"type": "AdamW"}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=causal_lm_spec(cfg), config=train_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(params_to_numpy(params, cfg), cfg)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=causal_lm_spec(cfg), config=train_cfg,
+                                                device="cpu")
+    assert engine.params["embed.embedding"].device.type == "cpu"
 
 
 def test_init_params_is_seeded_and_shaped():
@@ -93,8 +109,16 @@ def test_init_params_is_seeded_and_shaped():
     {"position": "learned"}, {"tie_embeddings": True}, {"qkv_bias": True},
 ])
 def test_unsupported_model_config_raises(model_over):
+    """ALiBi and MoE are not ported at all; the GPT-2 family trains but is
+    refused by the serving engine."""
+    if {"position": "alibi"} == model_over or "num_experts" in model_over:
+        with pytest.raises(NotImplementedError):
+            TransformerConfig(**{**_tiny().__dict__, **model_over})
+        return
+    cfg = TransformerConfig(**{**_tiny().__dict__, **model_over})
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError):
-        TransformerConfig(**{**_tiny().__dict__, **model_over})
+        InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
 
 
 @pytest.mark.parametrize("engine_over", [

@@ -13,14 +13,23 @@ ulp); paged_attention 2e-5 fp32 / 2e-2 bf16 per element (q scaled in bf16
 by the kernel, scores and p rounded to bf16 by the plain version), and a
 relative L2 error of each query's output vector of at most 1e-4 fp32 / 2e-2
 bf16, which holds a long row's small outputs as tightly as a short row's.
+The three flash-attention kernels are held to their plain versions by the
+relative L2 error of each (b, s, h) row vector of out, dq, dk and dv (1e-5
+fp32: summation order only; 2e-2 bf16: P and dS are rounded to bf16 before
+their products, in another order than the plain version's), with each row's
+norm floored at 1e-3 of the RMS row norm (rows that cancel to ~0), and lse by
+1e-4 absolute (fp32 scores from the same operands in both). Rows with no
+visible key must be exactly 0.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
 
 
 @pytest.fixture
@@ -120,3 +129,71 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(paged_attention(*t[:5], bs, new_lens=t[5]),
                                paged_attention_reference(*t[:5], bs, t[5]))
     assert paged_attention.launches == before
+
+
+FLASH_CASES = {
+    "mha_s100": dict(B=2, S=100, H=4, kvH=4, hd=64),
+    "gqa4_s192": dict(B=2, S=192, H=8, kvH=2, hd=64),
+    "gqa4_hd128_s70": dict(B=1, S=70, H=8, kvH=2, hd=128),
+    "keep_right_pad": dict(B=2, S=130, H=4, kvH=1, hd=64, keep_lens=(130, 77)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    q, k, v, do, keep = flash_inputs(cuda_device, **FLASH_CASES[case], seed=3)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    qs = fa.prescale_q(q)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    out, lse = fa.flash_fwd(qs, k, v, keep)
+    delta = fa.flash_delta(do, out)
+    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta)
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    assert after == tuple(b + 1 for b in before)
+    want_out, want_lse = fa.flash_fwd_reference(qs, k, v, keep)
+    want_dq = fa.flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in ((out, want_out), (dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert row_rel_l2(got, want) <= tol
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_fully_masked_rows_are_zero(cuda_device):
+    """Left padding: rows whose visible keys are all dropped by the keep-mask
+    get output 0, the lse sentinel and zero gradients."""
+    q, k, v, do, _ = flash_inputs(cuda_device, B=1, S=96, H=4, kvH=2, hd=64, seed=3)
+    keep = torch.ones(1, 96, dtype=torch.int32, device=cuda_device)
+    keep[:, :10] = 0
+    qs = fa.prescale_q(q)
+    out, lse = fa.flash_fwd(qs, k, v, keep)
+    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, fa.flash_delta(do, out))
+    torch.cuda.synchronize()
+    assert torch.all(out[:, :10] == 0) and torch.all(dq[:, :10] == 0)
+    assert torch.all(lse[:, :, :10] == fa.NEG_INF)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_bad_inputs(cuda_device):
+    q, k, v, do, _ = flash_inputs(cuda_device, B=1, S=64, H=4, kvH=2, hd=64, seed=3)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                     v[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.bfloat16(), v)
+
+
+def test_cpu_flash_takes_the_plain_versions():
+    q, k, v, do, keep = flash_inputs("cpu", B=1, S=20, H=4, kvH=2, hd=16, keep_lens=(15,), seed=3)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    q.requires_grad_(True)
+    out = fa.flash_causal_attention(q, k, v, mask=keep)
+    out.backward(do)
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before

@@ -5,9 +5,14 @@ JAX Pallas kernel (interpret mode, as ``tests/unit/ops/test_pallas_kernels.py``
 runs it) and to the XLA version, on the same numpy-seeded inputs. R = 300 rows
 is not a multiple of the Pallas kernel's 256-row block. Tolerances: 1e-5 in
 fp32 (summation order only), 1e-2 in bf16 (one bf16 ulp at |y| < 4).
+The gradient (the port's ``autograd.Function``, whose backward ports
+``_rms_p_bwd``) is held to ``jax.grad`` through the Pallas kernel's custom VJP
+for one numpy-seeded cotangent: dx and dscale within 1e-5 in fp32 and, in
+bf16, within 1e-2 of the largest entry (both round once from fp32 math).
 The CUDA kernel is held to the plain version in ``test_torch_kernels.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +21,6 @@ import torch
 from deepspeed_tpu.ops.norms import _xla_rms_norm
 from deepspeed_tpu.ops.pallas.norms import pallas_rms_norm
 from deepspeed_tpu_torch.ops.norms import rms_norm
-
-
 
 DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 
@@ -49,3 +52,20 @@ def test_rms_norm_leading_dims_and_mixed_scale_dtype():
     got = rms_norm(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(scale))
     assert got.dtype == torch.bfloat16 and got.shape == (3, 100, 64)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_rms_norm_grad_matches_jax_pallas(dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    x, scale = _inputs((300, 64), seed=3)
+    g = np.random.default_rng(4).standard_normal((300, 64)).astype(np.float32)
+    jx, js, jg = (jnp.asarray(a, jdt) for a in (x, scale, g))
+    want = jax.grad(lambda a, b: jnp.sum((pallas_rms_norm(a, b, eps=1e-5) * jg).astype(jnp.float32)),
+                    argnums=(0, 1))(jx, js)
+    xt, st = (torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (x, scale))
+    rms_norm(xt, st, eps=1e-5).backward(torch.from_numpy(g).to(tdt))
+    for got, w in zip((xt.grad, st.grad), want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert got.dtype == tdt and got.shape == w.shape
+        np.testing.assert_allclose(got.float().numpy(), w, rtol=tol,
+                                   atol=tol * float(np.abs(w).max()))

@@ -6,7 +6,9 @@ held to the JAX Pallas kernel ``flash_decode_paged`` (interpret mode, as
 ``_xla_paged_attention``, on the same numpy-seeded inputs: the cases of that
 file (pages-per-block 1/2/8, C = 1, GQA 8/4) plus a batch with a pad row
 (``new_lens == 0``) and large finite garbage in the pages the block-table
-tails point at. Tolerance 2e-5 in fp32, the JAX pair's own.
+tails point at. Tolerance 2e-5 in fp32, the JAX pair's own. Neither package
+gives the op a backward, so the port refuses an input that requires grad
+while grad mode is on.
 The CUDA kernel is held to the plain version in ``test_torch_kernels.py``.
 """
 
@@ -91,3 +93,13 @@ def test_paged_gqa_grouping():
 @pytest.mark.parametrize("ppcb", [1, 8])
 def test_paged_pad_row_and_garbage_tails(ppcb):
     _check(_setup_pad_and_garbage(), ppcb)
+
+
+def test_paged_refuses_gradients():
+    t = [torch.from_numpy(a) for a in _setup()[:6]]
+    q = t[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        paged_attention(q, *t[1:5], 16, new_lens=t[5])
+    with torch.no_grad():
+        out = paged_attention(q, *t[1:5], 16, new_lens=t[5])
+    assert out.shape == q.shape and not out.requires_grad
