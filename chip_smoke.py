@@ -8,19 +8,36 @@ Phases, any failure exits non-zero:
 1. build  every hand-written CUDA kernel from ``deepspeed_tpu_torch/csrc`` with
           nvcc (sm_90a), one nvcc per source, all started together;
 2. check  each kernel against its plain PyTorch version on the card: RMSNorm and
-          paged attention at the serving path's shapes; the three flash-attention
-          kernels (forward, dq, dkv) at the training path's shapes (llama3-1b,
-          GPT-2-125M, Llama-3-8B heads, a ragged S = 1000 with a keep-mask), each
-          in bf16 and fp32 (tolerances stated beside each check);
+          paged attention at the serving path's shapes, the latter also over
+          int8 and e4m3 pools; the int8 quantiser (nearest and stochastic) and
+          dequantiser at a Llama-3-8B w_up layer slice, at 2048 * 37 + 123 and
+          with an all-zero block, which must equal their plain versions bit for
+          bit; the three flash-attention kernels (forward, dq, dkv) at the
+          training path's shapes (llama3-1b, GPT-2-125M, Llama-3-8B heads, a
+          ragged S = 1000 with a keep-mask), each in bf16 and fp32 (tolerances
+          stated beside each check);
 3. serve  Llama-3-8B at full width and depth (random bf16 weights from a seed,
-          a 2048 x 16-slot bf16 KV pool) through ``InferenceEngineV2.generate``:
-          8 prompts of 32-1000 tokens, 64 new tokens each, decode chains of 8,
-          greedy. The kernels' launch counters are zeroed just before and read
-          just after; every launch of the run must come from the path (65
-          RMSNorm and 32 paged-attention launches per forward). One prefill
-          step's last-token logits are then held against the same step run
-          through the plain versions, and a decode chain is profiled (device
-          time by kernel, the device's busy share). Its memory is freed after;
+          a 4 GiB bf16 KV pool: 2048 x 16 slots) through
+          ``InferenceEngineV2.generate``: 8 prompts of 32-1000 tokens, 64 new
+          tokens each, decode chains of 8, greedy, after one warm-up call. The
+          kernels' launch counters are zeroed just before and read just after; every launch of the run
+          must come from the path (65 RMSNorm and 32 paged-attention launches
+          per forward). One prefill step's last-token logits are then held
+          against the same step run through the plain versions, and a decode
+          chain is profiled (device time by kernel, the device's busy share);
+   quant  the same weights, prompts and 4 GiB pool budget through two
+          quantised engines, each built and run with the counters zeroed just
+          before and read just after: (a) an int8 KV pool with int8 weight-only
+          quantisation (the weights quantised at init, one quantiser launch per
+          layer slice and the head: 225; 225 dequantiser and 32 quantised
+          paged-attention launches per forward), with a profiled decode chain
+          (the dequantiser's share of the device time); (b) an e4m3 KV pool
+          with bf16 weights. Each prints tok/s, peak memory, weight bytes, KV
+          bytes per token and blocks, holds its prefill logits to the plain
+          versions and prints its drift from the bf16 engine. Then one call of
+          the public ``quantize_int8(..., stochastic=True)`` at the w_up shape
+          (the stochastic kernel's only entry point). The weights are freed
+          after;
 4. train  Llama-3.2-1B (the ``llama3-1b`` preset) at full width and depth
           through ``initialize`` / ``train_batch``, with the JAX package's
           headline training config (bench.py) less its ``hbm_guard``,
@@ -39,7 +56,8 @@ Phases, any failure exits non-zero:
           accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
           flash kernel per micro-step), one more step profiled;
 7. time   each kernel with CUDA events beside its bound, its plain version and
-          one PyTorch library call computing the same function.
+          one PyTorch library call computing the same function (none for the
+          quantisers).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -64,16 +82,23 @@ import torch.nn.functional as F
 
 import deepspeed_tpu_torch
 import deepspeed_tpu_torch.inference.paged as paged_mod
+import deepspeed_tpu_torch.inference.woq as woq_mod
 import deepspeed_tpu_torch.models.transformer as transformer_mod
 from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_forward
+from deepspeed_tpu_torch.inference.paged import _kv_block_quant
 from deepspeed_tpu_torch.inference.ragged import StateManager, build_ragged_batch
 from deepspeed_tpu_torch.models import PRESETS, CausalLM, TransformerConfig, causal_lm_spec, init_params
 from deepspeed_tpu_torch.models.transformer import flatten
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import norms as norms_mod
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops import quant as quant_mod
 from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_quant,
+    paged_attention_reference,
+)
 from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
@@ -143,6 +168,10 @@ FLASH_SETS = {
     "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+QUANT_KERNELS = ("quantize_int8", "quantize_int8_stochastic", "dequantize_int8")
+KV_POOL_BYTES = 4 * 2 ** 30  # every serving engine's KV pool budget
+W_UP_SLICE = (4096, 14336)  # one layer of Llama-3-8B's w_up: 58,720,256 elements
+KV_CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 def log(msg: str) -> None:
@@ -159,16 +188,21 @@ def card_line() -> str:
         return "nvidia-smi unavailable"
 
 
+def counted() -> dict:
+    """Every kernel wrapper by name; each counts its own launches."""
+    return {"rms_norm": rms_norm, "paged_attention": paged_attention,
+            "paged_attention_quant": paged_attention_quant,
+            **{name: getattr(quant_mod, name) for name in QUANT_KERNELS},
+            **{name: getattr(fa, name) for name in FLASH_KERNELS}}
+
+
 def launch_counts() -> dict:
-    return {"rms_norm": rms_norm.launches, "paged_attention": paged_attention.launches,
-            **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
+    return {name: fn.launches for name, fn in counted().items()}
 
 
 def zero_counts() -> None:
-    rms_norm.launches = 0
-    paged_attention.launches = 0
-    for name in FLASH_KERNELS:
-        getattr(fa, name).launches = 0
+    for fn in counted().values():
+        fn.launches = 0
 
 
 def compare_rms(got, want, dtype):
@@ -193,6 +227,59 @@ def compare_paged(got, want, dtype):
 
 
 # ------------------------------------------------------------------ inputs
+def quantised_batch(batch, kv):
+    """``batch`` with its pools quantised to ``kv`` codes (one fp32 scale per
+    slot and kv head, the serving pool's layout)."""
+    kq, ks = _kv_block_quant(batch["pool_k_l"], kv)
+    vq, vs = _kv_block_quant(batch["pool_v_l"], kv)
+    return dict(batch, pool_k_l=kq, pool_v_l=vq, k_scale=ks, v_scale=vs)
+
+
+def quantizer_inputs(dev, rng):
+    """The quantiser check inputs (fp32, cast per check): a w_up layer
+    slice, 2048 * 37 + 123 elements with an all-zero block, and 100."""
+    x = torch.from_numpy(rng.standard_normal(W_UP_SLICE, dtype=np.float32) * 0.02).to(dev)
+    y = torch.from_numpy(rng.standard_normal(2048 * 37 + 123, dtype=np.float32) * 3).to(dev)
+    y[2048:4096] = 0
+    z = torch.from_numpy(rng.standard_normal(100, dtype=np.float32)).to(dev)
+    return {f"w_up slice {list(W_UP_SLICE)}": x, "2048 * 37 + 123, a zero block": y, "100": z}
+
+
+def check_quantizers(dev, rng):
+    """Quantiser and dequantiser kernels against their plain versions: codes,
+    scales and dequantised values identical; stochastic codes also floor or
+    floor + 1 of x / scale and the same for the same seed."""
+    failures = []
+    for label, x32 in quantizer_inputs(dev, rng).items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            q, s = quant_mod.quantize_int8(x)
+            sq, ss = quant_mod.quantize_int8(x, stochastic=True, seed=5)
+            sq2, _ = quant_mod.quantize_int8(x, stochastic=True, seed=5)
+            torch.cuda.synchronize()
+            rq, rs = quant_mod.quantize_int8_reference(x)
+            rsq, rss = quant_mod.quantize_int8_stochastic_reference(x, seed=5)
+            scaled = (x.float().reshape(-1)[: q.numel()]
+                      / s.repeat_interleave(min(2048, q.numel()))[: q.numel()])
+            low = torch.floor(scaled)
+            codes = sq.float()
+            ok = {"nearest": torch.equal(q, rq) and torch.equal(s, rs),
+                  "stochastic": torch.equal(sq, rsq) and torch.equal(ss, rss),
+                  "floor/floor+1": bool(((codes == low) | (codes == low + 1)).all()),
+                  "seeded": torch.equal(sq, sq2)}
+            for out in (torch.bfloat16, torch.float32):
+                got = quant_mod.dequantize_int8(q, s, x.shape, out)
+                torch.cuda.synchronize()
+                ok[f"dequant {str(out)[6:]}"] = torch.equal(
+                    got, quant_mod.dequantize_int8_reference(q, s, x.shape, out))
+            diff = int((q.int() - rq.int()).abs().max())
+            log(f"[check] quantizer {label} {str(dtype)[6:]}: {ok}; codes max diff {diff}, "
+                f"{int((q != rq).sum())} differ; tol identical {'ok' if all(ok.values()) else 'FAIL'}")
+            if not all(ok.values()):
+                failures.append(f"quantizer {label} {dtype}")
+    return failures
+
+
 def paged_batch(dev, rng, *, lens, new_lens, H=32, kvH=8, hd=128, bs=16, garbage_tail=False,
                 dtype=torch.bfloat16):
     """A paged-attention batch: row n holds ``lens[n]`` tokens in the pool, of
@@ -229,14 +316,39 @@ def paged_batch(dev, rng, *, lens, new_lens, H=32, kvH=8, hd=128, bs=16, garbage
                 block_size=bs, new_lens=t(np.asarray(new_lens, np.int32))), lens
 
 
+def dense_sdpa_operands(batch, lens):
+    """The library yardstick's operands: K/V gathered dense (and dequantised
+    to q's dtype for a quantised pool) outside the timing, q and the causal
+    mask in SDPA's [N, H, S, hd] layout."""
+    q = batch["q"]
+    N, C, H, hd = q.shape
+    G = H // batch["pool_k_l"].shape[1]
+    T = max(lens)
+    bs = batch["block_size"]
+    slot = (batch["block_tables"].long()[:, :, None] * bs
+            + torch.arange(bs, device=q.device)).reshape(N, -1)[:, :T]
+    kd, vd = batch["pool_k_l"][slot], batch["pool_v_l"][slot]
+    if "k_scale" in batch:
+        kd = (kd.float() * batch["k_scale"][slot]).to(q.dtype)
+        vd = (vd.float() * batch["v_scale"][slot]).to(q.dtype)
+    kd = kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    vd = vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= batch["q_positions"].long()[:, :, None])[:, None]
+    return kd, vd, q.permute(0, 2, 1, 3).contiguous(), mask
+
+
 def paged_bytes_and_flops(batch, lens):
     """Bytes the function must move (inputs read once, output written once,
-    only the live pages of the pool) and its flops, for this batch's data."""
+    only the live pages of the pool: hd values, plus a 4-byte scale for a
+    quantised pool, per token and kv head) and its flops, for this batch's
+    data."""
     q = batch["q"]
     N, C, H, hd = q.shape
     kvH, it = batch["pool_k_l"].shape[1], q.element_size()
     live_tokens = sum(lens[n] for n in range(N) if int(batch["new_lens"][n]) > 0)
-    kv = 2 * live_tokens * kvH * hd * it
+    per_head = hd * batch["pool_k_l"].element_size() + (4 if "k_scale" in batch else 0)
+    kv = 2 * live_tokens * kvH * per_head
     other = 2 * q.numel() * it + batch["block_tables"].numel() * 4 + batch["q_positions"].numel() * 4 + N * 4
     # scores and p@V, 2 flops per multiply-add, causal: each query sees up to its position
     pos = batch["q_positions"].cpu().numpy()
@@ -396,6 +508,23 @@ def phase_checks(dev, max_err):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"paged_attention {label} {dtype}")
+    failures += check_quantizers(dev, rng)
+    for label, (batch, lens) in checks.items():
+        for kv in KV_CODE_DTYPES:
+            qbatch = quantised_batch(batch, kv)
+            for dtype in (torch.bfloat16, torch.float32):
+                b = dict(qbatch, q=batch["q"].to(dtype))
+                got = paged_attention(**b)
+                torch.cuda.synchronize()
+                ok, mabs, mrel = compare_paged(got, paged_attention_reference(**b), dtype)
+                if dtype == torch.bfloat16:
+                    max_err["paged_attention_quant"] = max(max_err["paged_attention_quant"], mabs)
+                rtol, atol, rel_l2 = PAGED_TOL[dtype]
+                log(f"[check] paged_attention_quant {label} {kv} pool, {str(dtype)[6:]} q: max_abs "
+                    f"{mabs:.3e} max per-query rel L2 {mrel:.3e} tol rtol={rtol} atol={atol} "
+                    f"rel_l2={rel_l2} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"paged_attention_quant {label} {kv} {dtype}")
     for label, shape in FLASH_SETS.items():
         for dtype in (torch.bfloat16, torch.float32):
             ok, readings, lse_err = check_flash(dev, shape, dtype)
@@ -412,23 +541,22 @@ def phase_checks(dev, max_err):
     return failures, checks
 
 
-def phase_serve(dev, results):
-    """Phase 3: Llama-3-8B through InferenceEngineV2.generate. Returns the
-    launch counts of the counted run, or None on failure."""
-    cfg = dataclasses.replace(PRESETS["llama3-8b"], dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    log(f"[serve] init_params llama3-8b: {cfg.num_params() / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
-    engine = InferenceEngineV2(cfg, params, {"dtype": "bf16", "kv_block_size": 16,
-                                             "num_kv_blocks": 2048, "max_seq_len": 2048,
-                                             "decode_chain": 8}, device=dev)
-    log(f"[serve] KV pool: {engine.pool.k.numel() * 2 * 2 / 2 ** 30:.3f} GiB "
-        f"({engine.kv_bytes_per_token} B/token)")
+SERVE_CONFIG = {"dtype": "bf16", "kv_block_size": 16, "kv_pool_bytes": KV_POOL_BYTES,
+                "max_seq_len": 2048, "decode_chain": 8}
+
+
+def serve_prompts(cfg):
+    """The serving cell's 8 prompts (numpy seed 1): 32, 1000 and 6 lengths
+    drawn from [32, 1000]."""
     prng = np.random.default_rng(1)
     plens = [32, 1000] + [int(n) for n in prng.integers(32, 1001, 6)]
-    prompts = [prng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in plens]
+    return plens, [prng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in plens]
+
+
+def timed_generate(engine, prompts, max_new_tokens=64):
+    """``engine.generate`` with the host time of its prefill steps and decode
+    chains (each ending in a synchronise). Returns (outputs, wall s, spans,
+    peak GB)."""
     spans = {"prefill": 0.0, "decode": 0.0}
 
     def timed(fn, key):
@@ -443,15 +571,70 @@ def phase_serve(dev, results):
 
     engine._put_sample = timed(engine._put_sample, "prefill")
     engine.decode_chain = timed(engine.decode_chain, "decode")
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, max_new_tokens=max_new_tokens)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, spans, torch.cuda.max_memory_allocated() / 1e9
+
+
+def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None):
+    """Last-token logits [3, V] of one ragged prefill step (200, 32 and 77
+    tokens) on a fresh 64-block pool, through the kernels or, with ``plain``,
+    through the plain versions (which must launch nothing)."""
+    bs = 16
+    P = 2048 // bs
+    pool = init_pool(cfg, 64, bs, torch.bfloat16, dev, kv_quant=kv_quant)
+    b = build_ragged_batch(StateManager(64, bs, max_blocks_per_seq=P), [0, 1, 2],
+                           [prompts[1][:200], prompts[0], prompts[2][:77]], P,
+                           row_bucket=8, chunk_bucket=16)
+    arrs = [torch.from_numpy(a).to(dev) for a in (b.tokens, b.positions, b.new_lens, b.block_tables)]
+    if not plain:
+        return ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
+    before = launch_counts()
+    with mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
+            mock.patch.object(paged_mod, "paged_attention", paged_attention_reference), \
+            mock.patch.object(woq_mod, "dequantize_int8", quant_mod.dequantize_int8_reference):
+        out = ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
+    if launch_counts() != before:
+        raise RuntimeError("the plain run launched a kernel")
+    return out
+
+
+def check_prefill_logits(tag, dev, cfg, params, prompts, results, kv_quant=None):
+    """Prefill-step logits through the kernels against the plain versions;
+    returns the kernels' logits, or None when they disagree."""
+    logits = {mode: prefill_step_logits(dev, cfg, params, prompts, mode == "plain", kv_quant)
+              for mode in ("kernels", "plain")}
+    diff = logits["kernels"] - logits["plain"]
+    rel = float(diff.norm() / logits["plain"].norm())
+    agree = float((logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)).float().mean())
+    log(f"[{tag}] prefill-step logits, kernels vs plain: rel L2 {rel:.3e} (bound {LOGITS_REL_L2}), "
+        f"max_abs {float(diff.abs().max()):.3e}, argmax agreement {agree:.2f}")
+    results["logits_rel_l2"] = rel
+    if not (math.isfinite(rel) and rel <= LOGITS_REL_L2):
+        log(f"[{tag}] FAILED: prefill logits disagree with the plain versions")
+        return None
+    return logits["kernels"]
+
+
+def phase_serve(dev, cfg, params, results):
+    """Phase 3: Llama-3-8B through InferenceEngineV2.generate. Returns the
+    launch counts of the counted run, the outputs and the prefill-step logits
+    (the quantised engines' yardstick), or None on failure."""
+    engine = InferenceEngineV2(cfg, params, SERVE_CONFIG, device=dev)
+    log(f"[serve] KV pool: {engine.pool.k.numel() * 2 * 2 / 2 ** 30:.3f} GiB, "
+        f"{engine.num_kv_blocks} blocks ({engine.kv_bytes_per_token} B/token)")
+    plens, prompts = serve_prompts(cfg)
+    # warm-up (cuBLAS and allocator first calls), so that this engine's times
+    # compare with the quantised engines' that follow
+    engine.generate(prompts, max_new_tokens=2)
+    engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
+    engine.chain_steps = engine.model_forwards = 0
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=64)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    outs, wall, spans, peak_gb = timed_generate(engine, prompts)
     launches = launch_counts()
     forwards = engine.model_forwards
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect = dict({k: 0 for k in launches}, rms_norm=(2 * cfg.num_layers + 1) * forwards,
                   paged_attention=cfg.num_layers * forwards)
     log(f"[serve] prompts {plens}; {forwards} forwards, {engine.dispatch_count} dispatches, "
@@ -469,6 +652,7 @@ def phase_serve(dev, results):
         "prefill_tok_s": prefill_tokens / spans["prefill"],
         "decode_tok_s": engine.tokens_decoded / spans["decode"],
         "tokens_decoded": engine.tokens_decoded, "peak_mem_gb": peak_gb,
+        "kv_bytes_per_token": engine.kv_bytes_per_token, "kv_blocks": engine.num_kv_blocks,
         "first_tokens": [o[:8].tolist() for o in outs[:2]],
     }
     log(f"[serve] generate {wall:.2f} s: prefill {prefill_tokens} tokens in "
@@ -476,35 +660,8 @@ def phase_serve(dev, results):
         f"{engine.tokens_decoded} tokens in {spans['decode']:.3f} s "
         f"({engine.tokens_decoded / spans['decode']:.1f} tok/s), peak memory {peak_gb:.2f} GB")
 
-    # one prefill step through the kernels and through the plain versions
-    bs, P = 16, engine.max_pages
-    step_prompts = [prompts[1][:200], prompts[0], prompts[2][:77]]
-    logits = {}
-    for mode in ("kernels", "plain"):
-        pool = init_pool(cfg, 64, bs, torch.bfloat16, dev)
-        b = build_ragged_batch(StateManager(64, bs, max_blocks_per_seq=P), [0, 1, 2],
-                               step_prompts, P, row_bucket=8, chunk_bucket=16)
-        arrs = [torch.from_numpy(a).to(dev) for a in (b.tokens, b.positions, b.new_lens, b.block_tables)]
-        before = launch_counts()
-        if mode == "kernels":
-            out, _ = ragged_forward(engine.params, cfg, pool, *arrs, bs)
-        else:
-            with mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
-                    mock.patch.object(paged_mod, "paged_attention", paged_attention_reference):
-                out, _ = ragged_forward(engine.params, cfg, pool, *arrs, bs)
-            if launch_counts() != before:
-                log("[serve] FAILED: the plain run launched a kernel")
-                return None
-        logits[mode] = out[:3].float()
-        del pool
-    diff = logits["kernels"] - logits["plain"]
-    rel = float(diff.norm() / logits["plain"].norm())
-    agree = float((logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)).float().mean())
-    log(f"[serve] prefill-step logits, kernels vs plain: rel L2 {rel:.3e} (bound {LOGITS_REL_L2}), "
-        f"max_abs {float(diff.abs().max()):.3e}, argmax agreement {agree:.2f}")
-    results["serve"]["logits_rel_l2"] = rel
-    if not (math.isfinite(rel) and rel <= LOGITS_REL_L2):
-        log("[serve] FAILED: prefill logits disagree with the plain versions")
+    logits = check_prefill_logits("serve", dev, cfg, engine.params, prompts, results["serve"])
+    if logits is None:
         return None
 
     # where a decode chain's time goes (after the counted run)
@@ -518,7 +675,116 @@ def phase_serve(dev, results):
         return None
     results["profile_decode_chain"] = log_profile("profile", "decode chain (8 rows x 8 steps)",
                                                   *prof)
-    return launches
+    return launches, outs, logits
+
+
+# (tag, engine settings beside SERVE_CONFIG) of the quantised serving phase
+QUANT_ENGINES = {
+    "quant int8 kv + woq int8": {"kv_cache_dtype": "int8", "quant": {"enabled": True, "bits": 8}},
+    "quant fp8 kv": {"kv_cache_dtype": "fp8"},
+}
+
+
+def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
+    """Phase 3b: the quantised engines on phase 3's weights and prompts, each
+    built and run with the counters zeroed just before and read just after.
+    Returns {tag: launch counts} of the counted runs, or None on failure."""
+    plens, prompts = serve_prompts(cfg)
+    by_path = {}
+    for tag, over in QUANT_ENGINES.items():
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = InferenceEngineV2(cfg, params, dict(SERVE_CONFIG, **over), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        outs, wall, spans, peak_gb = timed_generate(engine, prompts)
+        launches = launch_counts()
+        forwards = engine.model_forwards
+        woq = engine.config.quant.enabled
+        # dequantiser launches a forward of each quantised leaf (layers of a
+        # stack each read once); ints only, so the engine's codes die with it
+        reads = [x.shape[0] if x.stacked else 1 for _, x in woq_mod._leaves(engine.params)
+                 if isinstance(x, woq_mod.WOQTensor)]
+        per_forward = sum(reads)
+        expect = dict({k: 0 for k in launches}, rms_norm=(2 * cfg.num_layers + 1) * forwards,
+                      paged_attention_quant=cfg.num_layers * forwards,
+                      dequantize_int8=per_forward * forwards, quantize_int8=per_forward)
+        weight_bytes = woq_mod.woq_bytes(engine.params)
+        log(f"[{tag}] init {init_s:.2f} s ({len(reads)} quantised leaves); {forwards} forwards, "
+            f"launches {launches} (expected {expect}, {per_forward} dequantiser launches "
+            f"per forward)")
+        if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
+            log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
+            return None
+        if launches != expect or launches["paged_attention_quant"] == 0 or (
+                woq and min(launches["quantize_int8"], launches["dequantize_int8"]) == 0):
+            log(f"[{tag}] FAILED: kernel launch counts do not match the forwards run")
+            return None
+        prefill_tokens = sum(plens)
+        agree = float(np.mean(np.concatenate([a == b for a, b in zip(outs, bf16_outs)])))
+        same_first = sum(int(a[0] == b[0]) for a, b in zip(outs, bf16_outs))
+        r = results[tag] = {
+            "kv_cache_dtype": engine.config.kv_dtype_name, "woq": woq, "init_s": init_s,
+            "forwards": forwards, "launches": launches, "wall_s": wall,
+            "prefill_s": spans["prefill"], "decode_s": spans["decode"],
+            "prefill_tok_s": prefill_tokens / spans["prefill"],
+            "decode_tok_s": engine.tokens_decoded / spans["decode"],
+            "tokens_decoded": engine.tokens_decoded, "peak_mem_gb": peak_gb,
+            "weight_bytes": weight_bytes, "kv_bytes_per_token": engine.kv_bytes_per_token,
+            "kv_blocks": engine.num_kv_blocks,
+            "kv_pool_gib": sum(t.numel() * t.element_size() for t in (
+                engine.pool.k, engine.pool.v, engine.pool.k_scale, engine.pool.v_scale)) / 2 ** 30,
+            "greedy_agreement_with_bf16": agree, "same_first_token_as_bf16": same_first,
+        }
+        log(f"[{tag}] generate {wall:.2f} s: prefill {prefill_tokens / spans['prefill']:.1f} tok/s, "
+            f"decode {engine.tokens_decoded / spans['decode']:.1f} tok/s, peak memory "
+            f"{peak_gb:.2f} GB; weights {weight_bytes / 1e9:.3f} GB; KV {engine.kv_bytes_per_token} "
+            f"B/token, {engine.num_kv_blocks} blocks in {r['kv_pool_gib']:.3f} GiB "
+            f"({engine.num_kv_blocks / results['serve']['kv_blocks']:.3f}x bf16's); greedy tokens "
+            f"equal to the bf16 engine's {100 * agree:.1f} % (first token {same_first}/8)")
+        logits = check_prefill_logits(tag, dev, cfg, engine.params, prompts, r,
+                                      kv_quant=engine.config.kv_quant)
+        if logits is None:
+            return None
+        drift = float((logits - bf16_logits).norm() / bf16_logits.norm())
+        top = float((logits.argmax(-1) == bf16_logits.argmax(-1)).float().mean())
+        r["drift_vs_bf16_rel_l2"], r["argmax_agreement_vs_bf16"] = drift, top
+        log(f"[{tag}] prefill-step logits against the bf16 engine's: rel L2 {drift:.3e}, argmax "
+            f"agreement {top:.2f} (random weights: printed, not held)")
+        if woq:
+            uids = list(range(len(prompts)))
+            engine.put(uids, prompts)
+            prof = device_profile(
+                lambda: engine.decode_chain(uids, [0] * len(uids), [8] * len(uids), 8))
+            for u in uids:
+                engine.flush(u)
+            if prof[1] <= 0:
+                log(f"[{tag}] FAILED: the profiler saw no device time in the decode chain")
+                return None
+            r["profile_decode_chain"] = log_profile(tag, "decode chain (8 rows x 8 steps)", *prof)
+            dequant_ms = sum(ms for ms, _, name in prof[3] if "dequant_kernel" in name)
+            r["dequant_share_of_device_time"] = dequant_ms / prof[1]
+            log(f"[{tag}] dequantiser: {dequant_ms:.2f} ms of {prof[1]:.2f} ms device time "
+                f"({100 * dequant_ms / prof[1]:.1f} %) in the decode chain")
+        by_path[tag] = launches
+        del engine
+        gc.collect()  # the timing wrappers hold the engine in a reference cycle
+        torch.cuda.empty_cache()
+
+    # the stochastic kernel's entry point: the public op, once, at the w_up shape
+    x = params["layers"]["mlp"]["w_up"]["kernel"][0]
+    zero_counts()
+    q, s = quant_mod.quantize_int8(x, stochastic=True, seed=1)
+    torch.cuda.synchronize()
+    by_path["quantize_int8 stochastic"] = launches = launch_counts()
+    log(f"[quant] quantize_int8(w_up layer 0 {tuple(x.shape)}, stochastic=True): codes "
+        f"{tuple(q.shape)} in [{int(q.min())}, {int(q.max())}], {s.numel()} scales; launches "
+        f"{launches}")
+    if launches != dict({k: 0 for k in launches}, quantize_int8_stochastic=1):
+        log("[quant] FAILED: the stochastic quantiser was not launched once")
+        return None
+    return by_path
 
 
 def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profile=False):
@@ -690,17 +956,8 @@ def phase_time(dev, checks, launches, max_err, results):
                                  ("prefill", checks["prefill C=512, ragged, pad row"])):
         nbytes, flops = paged_bytes_and_flops(batch, lens)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        # library yardstick: SDPA over K/V pre-gathered dense (gather excluded)
         q = batch["q"]
-        N, C, H, hd = q.shape
-        G = H // batch["pool_k_l"].shape[1]
-        T = max(lens)
-        slot = (batch["block_tables"].long()[:, :, None] * 16
-                + torch.arange(16, device=dev)).reshape(N, -1)[:, :T]
-        kd = batch["pool_k_l"][slot].permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
-        vd = batch["pool_v_l"][slot].permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
-        qd = q.permute(0, 2, 1, 3).contiguous()
-        mask = (torch.arange(T, device=dev)[None, None, :] <= batch["q_positions"].long()[:, :, None])[:, None]
+        kd, vd, qd, mask = dense_sdpa_operands(batch, lens)
         t = {"ms": time_fn(lambda: paged_attention(**batch), iters=50, flush=flush),
              "plain_ms": time_fn(lambda: paged_attention_reference(**batch), iters=20, flush=flush),
              "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
@@ -718,6 +975,73 @@ def phase_time(dev, checks, launches, max_err, results):
                         launches=launches["paged_attention"], max_abs_err=max_err["paged_attention"],
                         shape="decode q [8, 1, 32, 128], lens 1-1000, bf16",
                         **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+
+    # the quantised pool: int8 and e4m3 codes, bf16 q, the same two batches
+    for kv in KV_CODE_DTYPES:
+        for label, (batch, lens) in (("decode", checks["decode C=1, lens 1-1000"]),
+                                     ("prefill", checks["prefill C=512, ragged, pad row"])):
+            qb = quantised_batch(batch, kv)
+            nbytes, flops = paged_bytes_and_flops(qb, lens)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            kd, vd, qd, mask = dense_sdpa_operands(qb, lens)
+            t = {"ms": time_fn(lambda: paged_attention(**qb), iters=50, flush=flush),
+                 "plain_ms": time_fn(lambda: paged_attention_reference(**qb), iters=20, flush=flush),
+                 "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+                                       iters=50, flush=flush),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            timing[f"paged_attention_quant[{kv},{label}]"] = t
+            log(f"[time] paged_attention_quant {label} {kv} pool, q {tuple(qb['q'].shape)} bf16: "
+                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA(dense, dequantised) "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            del kd, vd, qd, mask
+    d = timing["paged_attention_quant[int8,decode]"]
+    kernels.append(dict(name="paged_attention_quant", route="cuda",
+                        source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+                        replaces="deepspeed_tpu/ops/pallas/paged_attention.py:59",
+                        launches=launches["paged_attention_quant"],
+                        max_abs_err=max_err["paged_attention_quant"],
+                        shape="decode q [8, 1, 32, 128] bf16, int8 pool, lens 1-1000",
+                        **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+
+    # the quantisers at a w_up layer slice, bf16 (what WOQ quantises and reads)
+    x = torch.randn(W_UP_SLICE, device=dev, dtype=torch.bfloat16) * 0.02
+    q, s = quant_mod.quantize_int8(x)
+    n, nb = x.numel(), s.numel()
+    calls = {
+        "quantize_int8": (lambda: quant_mod.quantize_int8(x),
+                          lambda: quant_mod.quantize_int8_reference(x),
+                          2 * n + n + 4 * nb, 4 * n, ":38"),
+        "quantize_int8_stochastic": (
+            lambda: quant_mod.quantize_int8(x, stochastic=True, seed=1),
+            lambda: quant_mod.quantize_int8_stochastic_reference(x, seed=1),
+            2 * n + n + 4 * nb, 20 * n, ":46"),
+        "dequantize_int8": (lambda: quant_mod.dequantize_int8(q, s, x.shape, torch.bfloat16),
+                            lambda: quant_mod.dequantize_int8_reference(q, s, x.shape, torch.bfloat16),
+                            n + 4 * nb + 2 * n, n, ":60"),
+    }
+    for name, (kernel_fn, plain_fn, nbytes, ops, line) in calls.items():
+        # bytes: each input read once, each output written once; operations
+        # (abs, max, divide, round per element; the hash's ~16 integer ops
+        # more for the stochastic form; one multiply to dequantise) at the
+        # fp32 rate, far below the bytes' time
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[torch.float32] * 1e3
+        t = {"ms": time_fn(kernel_fn, iters=50, flush=flush),
+             "plain_ms": time_fn(plain_fn, iters=5, warmup=2, flush=flush),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None}
+        timing[f"{name}{list(W_UP_SLICE)}"] = t
+        log(f"[time] {name} {list(W_UP_SLICE)} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"no library call, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.2f} MB; "
+            f"{nbytes / t['ms'] / 1e6:.1f} GB/s)")
+        kernels.append(dict(name=name, route="cuda", source="deepspeed_tpu_torch/csrc/quantizer.cu",
+                            replaces=f"deepspeed_tpu/ops/pallas/quantizer.py{line}",
+                            launches=launches[name], max_abs_err=0.0,
+                            shape=f"w_up layer slice {list(W_UP_SLICE)} bf16",
+                            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}))
+    del x, q, s
 
     # the flash kernels at the llama3-1b training shape, bf16, no keep-mask
     shape = FLASH_SETS["llama3-1b"]
@@ -789,7 +1113,8 @@ def main(argv=None) -> int:
     card = card_line()
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
-    max_err = {"rms_norm": 0.0, "paged_attention": 0.0, **{k: 0.0 for k in FLASH_KERNELS}}
+    max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
+               **{k: 0.0 for k in FLASH_KERNELS}}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -808,11 +1133,25 @@ def main(argv=None) -> int:
         log(f"[check] FAILED: {failures}")
         return 1
 
-    # ---- 3. serving, then its memory is freed
-    serve_launches = phase_serve(dev, results)
-    if serve_launches is None:
+    # ---- 3. serving, bf16 then quantised, on one set of weights; then its
+    # memory is freed
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[serve] init_params llama3-8b: {cfg.num_params() / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s")
+    served = phase_serve(dev, cfg, params, results)
+    if served is None:
         return 1
+    serve_launches, bf16_outs, bf16_logits = served
     gc.collect()  # the engine's timing wrappers hold it in a reference cycle
+    torch.cuda.empty_cache()
+    quant_launches = phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results)
+    if quant_launches is None:
+        return 1
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 4. training Llama-3.2-1B
@@ -840,10 +1179,12 @@ def main(argv=None) -> int:
         return 1
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
-    # over the counted runs of the paths (serving, both trainings)
-    launches = {k: serve_launches[k] + llama_launches[k] + gpt2_launches[k] for k in serve_launches}
-    results["launches_by_path"] = {"serve": serve_launches, "train llama3-1b": llama_launches,
-                                   "train gpt2-125m": gpt2_launches}
+    # over the counted runs of the paths (serving bf16 and quantised, the
+    # stochastic quantiser's call, both trainings)
+    by_path = {"serve": serve_launches, **quant_launches, "train llama3-1b": llama_launches,
+               "train gpt2-125m": gpt2_launches}
+    launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
+    results["launches_by_path"] = by_path
     kernels = phase_time(dev, checks, launches, max_err, results)
     if any(kernel["launches"] == 0 for kernel in kernels):
         log("[time] FAILED: a kernel was launched no time on the main path")

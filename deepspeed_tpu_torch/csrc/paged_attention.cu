@@ -2,17 +2,23 @@
 // (sm_90a).
 //
 // Replaces: deepspeed_tpu/ops/pallas/paged_attention.py:_decode_kernel
-// (pallas_call in flash_decode_paged), the bf16/fp32 path without ALiBi and
-// without a quantized pool. It computes what that kernel computes: the new
+// (pallas_call in flash_decode_paged) without ALiBi: the bf16/fp32 pool
+// (ds_paged_attention) and the quantised int8/e4m3 pool with one fp32 scale
+// per (slot, kv head) (ds_paged_attention_quant, the kernel's quantized=True
+// form). It computes what that kernel computes: the new
 // queries q [N, C, H, hd] of each row attend to the row's pages of one
 // layer's pool [S_flat, kvH, hd] through block_tables [N, P]; query head h
 // reads kv head h / G; key j is visible to a query at position p iff j <= p;
 // q is pre-scaled by hd^-0.5 in q's dtype; the online softmax (m, l, acc) is
-// kept in fp32 and the output is acc / l, with l == 0 giving 0.
+// kept in fp32 and the output is acc / l, with l == 0 giving 0. A quantised
+// pool is dequantised right after each page is loaded: float(code) * its
+// slot's scale, rounded to q's dtype (JAX's .astype(q_ref.dtype)), so the
+// full-precision pool never exists anywhere.
 //
 // What bounds it on an H100: at decode (C = 1) bytes. Every live KV page is
 // read once (hd * 2 values * itemsize per token and kv head) for 4 * G * hd
-// flops, ~8 flops per byte in bf16. A prefill chunk reuses each page for C*G
+// flops, ~8 flops per byte in bf16 (hd + 4 bytes per token and kv head for
+// a quantised pool: about half). A prefill chunk reuses each page for C*G
 // query rows and is bound by operations instead; this first version does
 // them with fp32 FMAs, not tensor cores.
 //
@@ -29,8 +35,9 @@
 //   in its tile and never past the row's live length ceil((max_pos+1)/bs)
 //   with max_pos the position at new_lens-1. Entries past that are never
 //   read. 64 keys at a time (four 16-token pages) are loaded with 16-byte
-//   vector loads, one step ahead into registers, and stored to shared
-//   memory as fp32 at the top of the step, then
+//   vector loads (8 bf16, 4 fp32 or 16 one-byte codes each; a quantised
+//   pool's scales with them), one step ahead into registers, and stored to
+//   shared memory as fp32 at the top of the step (dequantised first), then
 //     scores  S = Q K^T  (each thread: one key, TQ / 4 query rows),
 //     softmax one warp per query row (shuffle max/sum), probabilities back
 //             into shared memory, per-row rescale factors alpha,
@@ -43,9 +50,12 @@
 // right and simple first.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,6 +69,8 @@ constexpr int kTileQSmall = 16;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
@@ -76,6 +88,19 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* dst) {
   const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int e = 0; e < kVec; ++e) dst[e] = to_float(v[e]);
+}
+
+// 16 bytes of pool values (KV) into floats: a bf16/fp32 pool as stored
+// (KV == T); a quantised pool's codes times their slot's scale, rounded to
+// the compute dtype T.
+template <typename T, typename KV>
+__device__ __forceinline__ void unpack_kv(const uint4& raw, float scale, float* dst) {
+  constexpr int kVec = 16 / sizeof(KV);
+  unpack<KV>(raw, dst);
+  if constexpr (!std::is_same<KV, T>::value) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[e] = round_to<T>(dst[e] * scale);
+  }
 }
 
 // Load 16 bytes (kVec elements of T) at src into kVec floats at dst.
@@ -106,13 +131,18 @@ struct Smem {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <typename T, int HD, int kTileQ>
+// T: q and output type (fp32 | bf16). KV: pool type, T itself or a
+// quantised int8_t / __nv_fp8_e4m3 with k_scale / v_scale [S_flat, kvH] fp32
+// (nullptr when KV == T).
+template <typename T, typename KV, int HD, int kTileQ>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool, const int* __restrict__ block_tables,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                       const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                        const int* __restrict__ q_positions, const int* __restrict__ new_lens,
                        T* __restrict__ out, int C, int H, int kvH, int P, int bs,
                        float q_scale) {
+  constexpr bool kQuant = !std::is_same<KV, T>::value;
   using L = Smem<HD, kTileQ>;
   extern __shared__ float smem[];
   float* q_s = smem + L::kQ;
@@ -125,8 +155,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   int* pos_s = reinterpret_cast<int*>(smem + L::kPos);
   int* misc_s = reinterpret_cast<int*>(smem + L::kMisc);
 
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int kVecPerRow = HD / kVec;  // 16-byte loads per hd row
+  constexpr int kVec = 16 / sizeof(T);   // q elements per 16-byte load
+  constexpr int kVecPerRow = HD / kVec;  // 16-byte loads per q row
+  constexpr int kVecKV = 16 / sizeof(KV);      // pool elements per 16-byte load
+  constexpr int kVecPerRowKV = HD / kVecKV;    // 16-byte loads per pool row
   const int tile = blockIdx.x, kh = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = H / kvH;
@@ -179,26 +211,34 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  // K and V of one 64-key step: kLoads 16-byte loads of each per thread,
+  // K and V of one 64-key step: kLoads 16-byte loads of each per thread
+  // (with a quantised pool, the scale of each load's token beside it),
   // issued together into registers one step ahead (the next step's loads
   // are in flight while this step computes), stored to shared memory as fp32
   // at the top of the step that uses them. Page lookups are per token.
-  constexpr int kLoads = kTileK * kVecPerRow / kThreads;
-  static_assert(kTileK * kVecPerRow % kThreads == 0, "a step's loads split evenly");
+  constexpr int kLoads = kTileK * kVecPerRowKV / kThreads;
+  static_assert(kTileK * kVecPerRowKV % kThreads == 0, "a step's loads split evenly");
   uint4 k_reg[kLoads], v_reg[kLoads];
+  float ks_reg[kLoads], vs_reg[kLoads];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int it = 0; it < kLoads; ++it) {
       const int idx = tid + it * kThreads;
-      const int t = k0 + idx / kVecPerRow, vi = idx % kVecPerRow;
+      const int t = k0 + idx / kVecPerRowKV, vi = idx % kVecPerRowKV;
       if (t < n_tok) {
         const int64_t slot = static_cast<int64_t>(bt[t / bs]) * bs + t % bs;
-        const int64_t off = (slot * kvH + kh) * HD + vi * kVec;
+        const int64_t off = (slot * kvH + kh) * HD + vi * kVecKV;
         k_reg[it] = *reinterpret_cast<const uint4*>(k_pool + off);
         v_reg[it] = *reinterpret_cast<const uint4*>(v_pool + off);
+        if constexpr (kQuant) {
+          ks_reg[it] = k_scale[slot * kvH + kh];
+          vs_reg[it] = v_scale[slot * kvH + kh];
+        }
       } else {
-        k_reg[it] = make_uint4(0u, 0u, 0u, 0u);  // zero bits: 0.0 in bf16 and fp32
+        // zero bits: 0.0 in bf16, fp32, int8 and e4m3
+        k_reg[it] = make_uint4(0u, 0u, 0u, 0u);
         v_reg[it] = make_uint4(0u, 0u, 0u, 0u);
+        ks_reg[it] = vs_reg[it] = 0.f;
       }
     }
   };
@@ -208,15 +248,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int it = 0; it < kLoads; ++it) {
       const int idx = tid + it * kThreads;
-      const int j = idx / kVecPerRow, vi = idx % kVecPerRow;
-      float kb[kVec], vb[kVec];
-      unpack<T>(k_reg[it], kb);
-      unpack<T>(v_reg[it], vb);
+      const int j = idx / kVecPerRowKV, vi = idx % kVecPerRowKV;
+      float kb[kVecKV], vb[kVecKV];
+      unpack_kv<T, KV>(k_reg[it], ks_reg[it], kb);
+      unpack_kv<T, KV>(v_reg[it], vs_reg[it], vb);
 #pragma unroll
-      for (int e = 0; e < kVec; e += 4) {
-        *reinterpret_cast<float4*>(k_s + j * L::kKStride + vi * kVec + e) =
+      for (int e = 0; e < kVecKV; e += 4) {
+        *reinterpret_cast<float4*>(k_s + j * L::kKStride + vi * kVecKV + e) =
             make_float4(kb[e], kb[e + 1], kb[e + 2], kb[e + 3]);
-        *reinterpret_cast<float4*>(v_s + j * HD + vi * kVec + e) =
+        *reinterpret_cast<float4*>(v_s + j * HD + vi * kVecKV + e) =
             make_float4(vb[e], vb[e + 1], vb[e + 2], vb[e + 3]);
       }
     }
@@ -326,38 +366,63 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int HD, int kTileQ>
-int launch_tile(const void* q, const void* k_pool, const void* v_pool, const void* block_tables,
-                const void* q_positions, const void* new_lens, void* out, int N, int C, int H,
-                int kvH, int P, int bs, float q_scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *block_tables, *q_positions, *new_lens;
+  void* out;
+  int N, C, H, kvH, P, bs;
+  float q_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int HD, int kTileQ>
+int launch_tile(const Args& a) {
   constexpr size_t kBytes = Smem<HD, kTileQ>::kBytes;
   static bool configured = false;  // once per instantiation and process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, HD, kTileQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attention_kernel<T, KV, HD, kTileQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int G = H / kvH;
-  const int tiles = (C * G + kTileQ - 1) / kTileQ;
-  const dim3 grid(tiles, kvH, N);
-  paged_attention_kernel<T, HD, kTileQ><<<grid, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(block_tables), static_cast<const int*>(q_positions),
-      static_cast<const int*>(new_lens), static_cast<T*>(out), C, H, kvH, P, bs, q_scale);
+  const int G = a.H / a.kvH;
+  const int tiles = (a.C * G + kTileQ - 1) / kTileQ;
+  const dim3 grid(tiles, a.kvH, a.N);
+  paged_attention_kernel<T, KV, HD, kTileQ><<<grid, kThreads, kBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k_pool),
+      static_cast<const KV*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.block_tables),
+      static_cast<const int*>(a.q_positions), static_cast<const int*>(a.new_lens),
+      static_cast<T*>(a.out), a.C, a.H, a.kvH, a.P, a.bs, a.q_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k_pool, const void* v_pool, const void* block_tables,
-           const void* q_positions, const void* new_lens, void* out, int N, int C, int H,
-           int kvH, int P, int bs, float q_scale, cudaStream_t stream) {
-  if (C * (H / kvH) <= kTileQSmall)
-    return launch_tile<T, HD, kTileQSmall>(q, k_pool, v_pool, block_tables, q_positions,
-                                           new_lens, out, N, C, H, kvH, P, bs, q_scale, stream);
-  return launch_tile<T, HD, kTileQLarge>(q, k_pool, v_pool, block_tables, q_positions, new_lens,
-                                         out, N, C, H, kvH, P, bs, q_scale, stream);
+template <typename T, typename KV, int HD>
+int launch(const Args& a) {
+  if (a.C * (a.H / a.kvH) <= kTileQSmall) return launch_tile<T, KV, HD, kTileQSmall>(a);
+  return launch_tile<T, KV, HD, kTileQLarge>(a);
+}
+
+// kv: 0 = the pool is of q's type, 1 = int8 codes, 2 = e4m3 codes
+template <typename T>
+int launch_kv(const Args& a, int hd, int kv) {
+  if (kv == 0 && hd == 128) return launch<T, T, 128>(a);
+  if (kv == 0 && hd == 64) return launch<T, T, 64>(a);
+  if (kv == 1 && hd == 128) return launch<T, int8_t, 128>(a);
+  if (kv == 1 && hd == 64) return launch<T, int8_t, 64>(a);
+  if (kv == 2 && hd == 128) return launch<T, __nv_fp8_e4m3, 128>(a);
+  if (kv == 2 && hd == 64) return launch<T, __nv_fp8_e4m3, 64>(a);
+  return cudaErrorInvalidValue;
+}
+
+int dispatch(const Args& a, int hd, int dtype, int kv) {
+  if (a.N <= 0 || a.C <= 0 || a.kvH <= 0 || a.H % a.kvH != 0 || a.P <= 0 || a.bs <= 0 ||
+      a.N > 65535 || a.kvH > 65535)
+    return cudaErrorInvalidValue;
+  if ((kv != 0) != (a.k_scale != nullptr && a.v_scale != nullptr)) return cudaErrorInvalidValue;
+  if (dtype == 1) return launch_kv<__nv_bfloat16>(a, hd, kv);
+  if (dtype == 0) return launch_kv<float>(a, hd, kv);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -369,17 +434,22 @@ extern "C" int ds_paged_attention(const void* q, const void* k_pool, const void*
                                   const void* new_lens, void* out, int N, int C, int H, int kvH,
                                   int hd, int P, int bs, float q_scale, int dtype,
                                   void* stream) {
-  if (N <= 0 || C <= 0 || kvH <= 0 || H % kvH != 0 || P <= 0 || bs <= 0 || N > 65535 ||
-      kvH > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_PA_LAUNCH(T, HD)                                                                    \
-  return launch<T, HD>(q, k_pool, v_pool, block_tables, q_positions, new_lens, out, N, C, H, \
-                       kvH, P, bs, q_scale, s)
-  if (dtype == 1 && hd == 128) DS_PA_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 1 && hd == 64) DS_PA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 0 && hd == 128) DS_PA_LAUNCH(float, 128);
-  if (dtype == 0 && hd == 64) DS_PA_LAUNCH(float, 64);
-#undef DS_PA_LAUNCH
-  return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, nullptr, nullptr, block_tables, q_positions, new_lens, out,
+               N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, hd, dtype, 0);
+}
+
+// The quantised pool: k_pool / v_pool [S_flat, kvH, hd] of int8 (kv = 1) or
+// e4m3 (kv = 2) codes, k_scale / v_scale [S_flat, kvH] fp32; q and out of
+// dtype. Returns cudaGetLastError() after the launch.
+extern "C" int ds_paged_attention_quant(const void* q, const void* k_pool, const void* v_pool,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* block_tables, const void* q_positions,
+                                        const void* new_lens, void* out, int N, int C, int H,
+                                        int kvH, int hd, int P, int bs, float q_scale,
+                                        int dtype, int kv, void* stream) {
+  if (kv != 1 && kv != 2) return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, block_tables, q_positions, new_lens, out,
+               N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, hd, dtype, kv);
 }

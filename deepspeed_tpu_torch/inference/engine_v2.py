@@ -10,11 +10,18 @@ per admission wave, then one K-step decode chain over every active sequence
 (``paged.ragged_decode_chain``), shrinking the chain and then preempting the
 youngest sequence under KV-pool pressure, exactly as the JAX engine does.
 
+Quantised serving: ``kv_cache_dtype`` 'int8' | 'fp8' stores the pool as
+1-byte codes plus one fp32 scale per (layer, slot, kv head) head vector
+(``inference/paged.py``), and ``quant.enabled`` quantises the weights before
+they are placed (``inference/woq.py``): int8/int4/fp8 codes and fp32 scales
+live on the device, and every weight read dequantises.
+
 The engine runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; on the CPU every kernel-backed op takes its
-plain PyTorch version. Settings beyond the dense bf16/fp32 single-device
-slice (quantized KV or weights, prefix cache, speculative decoding, tensor or
-expert parallelism, disaggregated roles) raise ``NotImplementedError``.
+plain PyTorch version. Settings beyond the dense single-device slice (a
+float ``kv_cache_dtype`` other than ``dtype``, prefix cache, speculative
+decoding, tensor or expert parallelism, disaggregated roles) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,13 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.config.config_utils import DeepSpeedConfigModel
-from deepspeed_tpu_torch.inference.paged import init_pool, ragged_decode_chain, ragged_forward
+from deepspeed_tpu_torch.inference.config import QuantConfig
+from deepspeed_tpu_torch.inference.paged import (
+    KV_QUANT_DTYPES,
+    init_pool,
+    ragged_decode_chain,
+    ragged_forward,
+)
 from deepspeed_tpu_torch.inference.ragged import (
     BatchStaging,
     RaggedBatch,
@@ -35,6 +48,7 @@ from deepspeed_tpu_torch.inference.ragged import (
     build_ragged_batch,
 )
 from deepspeed_tpu_torch.inference.sampling import sample_logits
+from deepspeed_tpu_torch.inference.woq import WOQTensor, quantize_params, woq_format
 from deepspeed_tpu_torch.models.transformer import TransformerConfig
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.hbm import kv_blocks_for_bytes, kv_slot_bytes
@@ -46,6 +60,8 @@ _DTYPES = {
     "fp32": torch.float32,
     "float32": torch.float32,
 }
+# float dtype names the JAX engine accepts beside the ported ones
+_FLOAT_NAMES = ("fp16", "float16", "half")
 
 
 @dataclasses.dataclass
@@ -60,7 +76,7 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
     num_kv_blocks: int = 512
     kv_cache_dtype: Optional[str] = None
     kv_pool_bytes: Optional[int] = None
-    quant: Optional[Dict[str, Any]] = None
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     max_seqs: int = 64
     max_seq_len: Optional[int] = None
     row_bucket: int = 8
@@ -71,13 +87,14 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
     spec_decode: int = 0
 
     def __post_init__(self):
+        if isinstance(self.quant, dict):
+            self.quant = QuantConfig.from_dict(self.quant)
         out_of_slice = {
             "tp_size": (self.tp_size, 1),
             "ep_size": (self.ep_size, 1),
             "prefix_cache": (self.prefix_cache, False),
             "role": (self.role, "mixed"),
             "spec_decode": (self.spec_decode, 0),
-            "quant.enabled": (bool((self.quant or {}).get("enabled", False)), False),
         }
         for name, (got, want) in out_of_slice.items():
             if got != want:
@@ -86,15 +103,33 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
                     f"(only {name}={want!r})")
         if self.dtype.lower() not in _DTYPES:
             raise NotImplementedError(f"dtype={self.dtype!r}: bf16 | fp32 only")
-        kv = (self.kv_cache_dtype or self.dtype).lower()
-        if kv not in _DTYPES or _DTYPES[kv] != _DTYPES[self.dtype.lower()]:
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}: the pool is stored in the compute "
-                "dtype; quantized (int8/fp8) or mixed-dtype pools are not ported")
+        if self.kv_quant is None:
+            kv = (self.kv_cache_dtype or self.dtype).lower()
+            if kv not in _DTYPES or _DTYPES[kv] != self.torch_dtype:
+                raise NotImplementedError(
+                    f"kv_cache_dtype={self.kv_cache_dtype!r}: a float pool is stored in the "
+                    "compute dtype; a float pool of another dtype is not ported")
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype.lower()]
+
+    @property
+    def kv_quant(self) -> Optional[str]:
+        """None | 'int8' | 'fp8': the quantised storage of the KV pool."""
+        name = (self.kv_cache_dtype or "").lower()
+        if name in KV_QUANT_DTYPES:
+            return name
+        if name and name not in _DTYPES and name not in _FLOAT_NAMES:
+            raise ValueError(
+                f"kv_cache_dtype must be a float dtype name or 'int8'|'fp8', "
+                f"got {self.kv_cache_dtype!r}")
+        return None
+
+    @property
+    def kv_dtype_name(self) -> str:
+        """The pool's storage name ('int8' | 'fp8' | a float name)."""
+        return (self.kv_cache_dtype or self.dtype).lower()
 
 
 def _check_servable(cfg: TransformerConfig) -> None:
@@ -137,13 +172,15 @@ class InferenceEngineV2:
         self.max_seq_len = max_len
         self.max_pages = -(-max_len // config.kv_block_size)
         cfg = model_config
+        kv_quant = config.kv_quant
         itemsize = torch.tensor([], dtype=dtype).element_size()
+        # the real (quantised or dense) bytes of a token slot size the pool
         self.kv_bytes_per_token = kv_slot_bytes(cfg.num_layers, cfg.kv_heads,
-                                                cfg.dims_per_head, itemsize)
+                                                cfg.dims_per_head, itemsize, kv_quant)
         if config.kv_pool_bytes is not None:
             num_blocks = kv_blocks_for_bytes(config.kv_pool_bytes, cfg.num_layers,
                                              config.kv_block_size, cfg.kv_heads,
-                                             cfg.dims_per_head, itemsize)
+                                             cfg.dims_per_head, itemsize, kv_quant)
         else:
             num_blocks = config.num_kv_blocks
         self.num_kv_blocks = num_blocks
@@ -151,17 +188,28 @@ class InferenceEngineV2:
                                   max_blocks_per_seq=self.max_pages)
         self._staging = BatchStaging(self.max_pages)
 
+        if config.quant.enabled:
+            # WOQ before placement, as the JAX engine does at tp 1: the codes
+            # and scales are placed as they are, never cast
+            params = quantize_params(params, woq_format(config.quant),
+                                     min_size=config.quant.min_leaf_size,
+                                     classes=config.quant.tensor_classes)
+
         def place(tree):
-            return {k: place(v) if isinstance(v, dict) else v.to(self.device, dtype)
+            return {k: place(v) if isinstance(v, dict)
+                    else v.placed(self.device) if isinstance(v, WOQTensor)
+                    else v.to(self.device, dtype)
                     for k, v in tree.items()}
 
         self.params = place(params)
-        self.pool = init_pool(cfg, num_blocks, config.kv_block_size, dtype, self.device)
+        self.pool = init_pool(cfg, num_blocks, config.kv_block_size, dtype, self.device,
+                              kv_quant=kv_quant)
         n_params = cfg.num_params()
         log_dist(
             f"InferenceEngineV2: {n_params/1e6:.1f}M params, "
             f"{num_blocks}x{config.kv_block_size} KV slots "
-            f"[{config.dtype}, {self.kv_bytes_per_token} B/token], device={self.device}")
+            f"[{config.kv_dtype_name}, {self.kv_bytes_per_token} B/token], "
+            f"device={self.device}")
         self._chain_buf: Dict[int, Dict[str, np.ndarray]] = {}
         # Serving-loop accounting (plain int adds).
         self.dispatch_count = 0   # device steps dispatched (prefill steps + chains)

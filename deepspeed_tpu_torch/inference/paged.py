@@ -15,6 +15,12 @@ processes a mixed prefill/decode ragged batch:
     the card, the plain gather-then-attend version on the CPU), called after
     the KV write, so a prefill chunk attends to itself.
 
+A quantised pool (``kv_quant`` 'int8' | 'fp8') holds 1-byte codes and one
+fp32 scale per (layer, slot, kv head): the quantisation block is the ``hd``
+head vector, so a step's KV write is one block-math call (``_kv_block_quant``)
+and still one ``index_copy_`` per array, values and scales alike, and paged
+attention dequantises only what it reads.
+
 The K-step decode chain (a ``lax.scan`` in JAX) is a Python loop of K
 single-token forwards with the same per-row ``emitted``/``budgets``/EOS
 masking, kept on the device: the host reads its result once per chain.
@@ -36,31 +42,63 @@ from deepspeed_tpu_torch.models.transformer import (
     layer_slice,
 )
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+from deepspeed_tpu_torch.ops.quant import fp8_block_math, int8_block_math
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 POOL_DTYPES = (torch.bfloat16, torch.float32)
+KV_QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 @dataclasses.dataclass
 class PagedKVPool:
     """k/v: ``[L, NB*bs + 1, kvH, hd]`` flat slot-major pools; the final slot
-    is the trash slot."""
+    is the trash slot. ``k_scale``/``v_scale``: ``[L, NB*bs + 1, kvH, 1]``
+    fp32 for a quantised pool, else None."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quant(self) -> Optional[str]:
+        """None | 'int8' | 'fp8', from the scales' presence and the value dtype."""
+        if self.k_scale is None:
+            return None
+        return "fp8" if self.k.dtype == torch.float8_e4m3fn else "int8"
 
 
 def init_pool(cfg: TransformerConfig, num_blocks: int, block_size: int,
               dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
               kv_quant: Optional[str] = None) -> PagedKVPool:
-    if kv_quant is not None:
-        raise NotImplementedError(f"kv_quant={kv_quant!r}: quantized KV pools are not ported")
-    if dtype not in POOL_DTYPES:
-        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 | fp32 only")
+    """A zeroed pool: ``dtype`` values, or with ``kv_quant`` 1-byte codes and
+    fp32 scales (``dtype`` is then the compute dtype and unused here)."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_blocks * block_size + 1, cfg.kv_heads, cfg.dims_per_head)
+    if kv_quant is not None:
+        if kv_quant not in KV_QUANT_DTYPES:
+            raise ValueError(f"kv_quant must be None|'int8'|'fp8', got {kv_quant!r}")
+        qdt = KV_QUANT_DTYPES[kv_quant]
+        sshape = shape[:3] + (1,)
+        return PagedKVPool(k=torch.zeros(shape, dtype=qdt, device=dev),
+                           v=torch.zeros(shape, dtype=qdt, device=dev),
+                           k_scale=torch.zeros(sshape, dtype=torch.float32, device=dev),
+                           v_scale=torch.zeros(sshape, dtype=torch.float32, device=dev))
+    if dtype not in POOL_DTYPES:
+        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 | fp32 only")
     return PagedKVPool(k=torch.zeros(shape, dtype=dtype, device=dev),
                        v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _kv_block_quant(x: torch.Tensor, quant: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[T, kvH, hd] float -> (codes [T, kvH, hd], fp32 scales [T, kvH, 1])``:
+    one symmetric absmax block per (token, head) ``hd`` vector through the
+    shared block math. Plain PyTorch on every device: it is jnp in the JAX
+    package (``inference/paged.py:84-94``)."""
+    T, kvH, hd = x.shape
+    x2 = x.float().reshape(T * kvH, hd)
+    q, s = int8_block_math(x2) if quant == "int8" else fp8_block_math(x2)
+    return q.reshape(T, kvH, hd), s.reshape(T, kvH, 1)
 
 
 def _slot_ids(block_tables: torch.Tensor, positions: torch.Tensor, valid: torch.Tensor,
@@ -89,6 +127,7 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
 
     x = params["embed"]["embedding"][tokens.long()].to(cfg.dtype)
     layers = params["layers"]
+    quant = pool.quant
     for i in range(cfg.num_layers):
         lp = layer_slice(layers, i)
         h = _apply_norm(lp["attn_norm"], cfg, x)
@@ -96,9 +135,20 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
         q, k = apply_qk_rope(cfg, q, k, positions)
         pk, pv = pool.k[i], pool.v[i]
         kvH, hd = k.shape[-2], k.shape[-1]
-        pk.index_copy_(0, flat_slot, k.reshape(-1, kvH, hd).to(pk.dtype))
-        pv.index_copy_(0, flat_slot, v.reshape(-1, kvH, hd).to(pv.dtype))
-        ctx = paged_attention(q, pk, pv, block_tables, positions, block_size, new_lens=new_lens)
+        if quant is None:
+            pk.index_copy_(0, flat_slot, k.reshape(-1, kvH, hd).to(pk.dtype))
+            pv.index_copy_(0, flat_slot, v.reshape(-1, kvH, hd).to(pv.dtype))
+            psk = psv = None
+        else:
+            # pad rows route to the trash slot for values and scales alike
+            psk, psv = pool.k_scale[i], pool.v_scale[i]
+            for codes, scales, new in ((pk, psk, k), (pv, psv, v)):
+                xq, xs = _kv_block_quant(new.reshape(-1, kvH, hd), quant)
+                # as bytes: index_copy_ has no e4m3 form
+                codes.view(torch.uint8).index_copy_(0, flat_slot, xq.view(torch.uint8))
+                scales.index_copy_(0, flat_slot, xs)
+        ctx = paged_attention(q, pk, pv, block_tables, positions, block_size, new_lens=new_lens,
+                              k_scale=psk, v_scale=psv)
         x = x + _attn_out(lp["attn"], cfg, ctx)
         h = _apply_norm(lp["mlp_norm"], cfg, x)
         x = x + _mlp(lp["mlp"], cfg, h)

@@ -42,6 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_U32 = ctypes.c_uint32
 
 # library name -> {C entry: argtypes}; every entry returns a cudaError_t (int)
 KERNELS: Dict[str, Dict[str, list]] = {
@@ -54,6 +55,18 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, stream
         "ds_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k_pool, v_pool, k_scale, v_scale, block_tables, q_positions, new_lens,
+        # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, kv (1 int8 | 2 e4m3), stream
+        "ds_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "quantizer": {
+        # x, n, block, dtype, vals, scales, stream
+        "ds_quantize_int8": [_P, _I64, _I, _I, _P, _P, _P],
+        # x, n, block, dtype, vals, scales, key (fmix32 of the seed), stream
+        "ds_quantize_int8_stochastic": [_P, _I64, _I, _I, _P, _P, _U32, _P],
+        # vals, scales, n, block, out_dtype, out, stream
+        "ds_dequantize_int8": [_P, _P, _I64, _I, _I, _P, _P],
     },
     "flash_attention_fwd": {
         # q, k, v, keep (or NULL), out, lse, B, S, H, kvH, hd, dtype, stream

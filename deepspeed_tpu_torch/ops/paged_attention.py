@@ -8,6 +8,15 @@ a CUDA tensor it launches the hand-written kernel ``csrc/paged_attention.cu``
 or raises. Layouts are the JAX package's: q ``[N, C, H, hd]``, one layer's
 pool ``[S_flat, kvH, hd]``, ``block_tables [N, P]``, ``q_positions [N, C]``.
 
+A quantised pool (int8 or e4m3 codes, ``k_scale``/``v_scale [S_flat, kvH,
+1]`` fp32: one scale per slot and kv head) goes to ``paged_attention_quant``,
+the wrapper of the kernel's quantised form (``ds_paged_attention_quant``,
+the JAX kernel's ``quantized=True``), with its own launch count. Both
+dequantise only what they read: the plain version the gathered slots of the
+batch's block tables, the kernel each page after it is loaded, as
+``float(code) * scale`` rounded to q's dtype. The full-precision pool never
+exists.
+
 The two differ in one rounding, as the JAX pair does: the kernel scales q by
 ``hd**-0.5`` in q's dtype before the dot, the plain version divides the fp32
 scores. In fp32 that is ~1e-7 relative; in bf16 it moves a score by up to
@@ -25,20 +34,27 @@ import torch
 from deepspeed_tpu_torch.ops import op_builder
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# quantised pool dtypes -> the C entry's kv code
+QUANT_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                              new_lens):
+                              new_lens, k_scale=None, v_scale=None):
     """Masked GQA attention of new queries against paged caches: gather the
     row's pages to ``[N, P*bs, kvH, hd]`` (slot index within the gathered view
     == global position), then causal attention over positions. ``new_lens``
-    is accepted for signature parity and unused, as in the JAX version."""
+    is accepted for signature parity and unused, as in the JAX version.
+    With ``k_scale``/``v_scale`` the pool holds codes, and only the gathered
+    slots are dequantised (``deepspeed_tpu/inference/paged.py:127-131``)."""
     N, C, H, hd = q.shape
     P = block_tables.shape[1]
     ar = torch.arange(block_size, device=q.device)
     slot = (block_tables.long()[:, :, None] * block_size + ar[None, None, :]).reshape(N, P * block_size)
     ck = pool_k_l[slot]  # [N, P*bs, kvH, hd]
     cv = pool_v_l[slot]
+    if k_scale is not None:
+        ck = (ck.float() * k_scale[slot]).to(q.dtype)
+        cv = (cv.float() * v_scale[slot]).to(q.dtype)
     kvH = ck.shape[2]
     G = H // kvH
     qg = q.reshape(N, C, kvH, G, hd)
@@ -59,7 +75,8 @@ def _q_scale(hd: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(hd ** -0.5, dtype=dtype))
 
 
-def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens):
+def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale=None,
+           v_scale=None):
     if q.dim() != 4 or pool_k_l.dim() != 3:
         raise ValueError(
             f"paged_attention: q must be [N, C, H, hd] and the pool [S_flat, kvH, hd], got "
@@ -80,12 +97,27 @@ def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens):
         raise ValueError(f"paged_attention: q_positions must be [{N}, {C}], got {tuple(q_positions.shape)}")
     if new_lens.shape != (N,):
         raise ValueError(f"paged_attention: new_lens must be [{N}], got {tuple(new_lens.shape)}")
-    if q.dtype not in op_builder.DTYPE_CODES or pool_k_l.dtype != q.dtype or pool_v_l.dtype != q.dtype:
-        raise TypeError(
-            f"paged_attention: q and pools must share one dtype of fp32 | bf16, got "
-            f"{q.dtype}, {pool_k_l.dtype}, {pool_v_l.dtype}")
+    if k_scale is None:
+        if (q.dtype not in op_builder.DTYPE_CODES or pool_k_l.dtype != q.dtype
+                or pool_v_l.dtype != q.dtype):
+            raise TypeError(
+                f"paged_attention: q and pools must share one dtype of fp32 | bf16, got "
+                f"{q.dtype}, {pool_k_l.dtype}, {pool_v_l.dtype}")
+        scales = []
+    else:
+        if (q.dtype not in op_builder.DTYPE_CODES or pool_k_l.dtype not in QUANT_KV_CODES
+                or pool_v_l.dtype != pool_k_l.dtype):
+            raise TypeError(
+                f"paged_attention_quant: q must be fp32 | bf16 and both pools int8 | e4m3, got "
+                f"{q.dtype}, {pool_k_l.dtype}, {pool_v_l.dtype}")
+        want = (pool_k_l.shape[0], kvH, 1)
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"paged_attention_quant: {name} must be fp32 {list(want)}, got "
+                                 f"{t.dtype} {list(t.shape)}")
+        scales = [("k_scale", k_scale), ("v_scale", v_scale)]
     ints = [("block_tables", block_tables), ("q_positions", q_positions), ("new_lens", new_lens)]
-    for name, t in [("q", q), ("pool_k_l", pool_k_l), ("pool_v_l", pool_v_l)] + ints:
+    for name, t in [("q", q), ("pool_k_l", pool_k_l), ("pool_v_l", pool_v_l)] + scales + ints:
         if t.device != q.device:
             raise ValueError(f"paged_attention: {name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -100,18 +132,28 @@ def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens):
         raise ValueError(f"paged_attention: N={N}, kvH={kvH} exceed the kernel's grid")
 
 
-def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                    new_lens: torch.Tensor):
-    """GQA attention of q ``[N, C, H, hd]`` over one layer's paged pool.
-
-    ``new_lens [N]`` int32 (live new tokens per row, 0 for a pad row) bounds
-    the pages the kernel reads to the row's live length. It has no backward
-    (nor has the JAX kernel): with grad mode on, an input that requires grad
-    raises instead of returning an output with no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, pool_k_l, pool_v_l)):
+def _refuse_grad(*tensors):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             "paged_attention has no backward: call it under torch.no_grad() or on "
             "tensors that do not require grad")
+
+
+def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
+                    new_lens: torch.Tensor, k_scale=None, v_scale=None):
+    """GQA attention of q ``[N, C, H, hd]`` over one layer's paged pool.
+
+    ``new_lens [N]`` int32 (live new tokens per row, 0 for a pad row) bounds
+    the pages the kernel reads to the row's live length. ``k_scale``/
+    ``v_scale`` mark a quantised pool (see ``paged_attention_quant``). It has
+    no backward (nor has the JAX kernel): with grad mode on, an input that
+    requires grad raises instead of returning an output with no gradient."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention: pass both k_scale and v_scale, or neither")
+    if k_scale is not None:
+        return paged_attention_quant(q, pool_k_l, pool_v_l, block_tables, q_positions,
+                                     block_size, new_lens, k_scale, v_scale)
+    _refuse_grad(q, pool_k_l, pool_v_l)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions,
                                          block_size, new_lens)
@@ -133,4 +175,32 @@ def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size
     return out
 
 
+def paged_attention_quant(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
+                          new_lens, k_scale, v_scale):
+    """GQA attention of q ``[N, C, H, hd]`` (fp32 | bf16) over one layer's
+    quantised pool: int8 or e4m3 codes ``[S_flat, kvH, hd]`` with fp32
+    ``k_scale``/``v_scale [S_flat, kvH, 1]``."""
+    _refuse_grad(q, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions,
+                                         block_size, new_lens, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_quant: unsupported device {q.device}")
+    _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale, v_scale)
+    N, C, H, hd = q.shape
+    out = torch.empty_like(q)
+    lib = op_builder.load("paged_attention")
+    err = lib.ds_paged_attention_quant(
+        q.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(), new_lens.data_ptr(),
+        out.data_ptr(), N, C, H, pool_k_l.shape[1], hd, block_tables.shape[1], block_size,
+        ctypes.c_float(_q_scale(hd, q.dtype)), op_builder.DTYPE_CODES[q.dtype],
+        QUANT_KV_CODES[pool_k_l.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_attention_quant kernel launch failed: cudaError {err}")
+    paged_attention_quant.launches += 1
+    return out
+
+
 paged_attention.launches = 0
+paged_attention_quant.launches = 0

@@ -122,7 +122,8 @@ def test_unsupported_model_config_raises(model_over):
 
 
 @pytest.mark.parametrize("engine_over", [
-    {"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "fp8"}, {"quant": {"enabled": True}},
+    {"kv_cache_dtype": "fp16"}, {"kv_cache_dtype": "fp32"},
+    {"quant": {"enabled": True}, "tp_size": 2},
     {"prefix_cache": True}, {"spec_decode": 2}, {"tp_size": 2}, {"ep_size": 2},
     {"role": "prefill"}, {"dtype": "fp16"},
 ])

@@ -19,7 +19,11 @@ fp32: summation order only; 2e-2 bf16: P and dS are rounded to bf16 before
 their products, in another order than the plain version's), with each row's
 norm floored at 1e-3 of the RMS row norm (rows that cancel to ~0), and lse by
 1e-4 absolute (fp32 scores from the same operands in both). Rows with no
-visible key must be exactly 0.
+visible key must be exactly 0. The quantiser kernels (int8 nearest and
+stochastic, dequantisation) must equal their plain versions bit for bit:
+both divide and round in IEEE fp32 and hash the same counters. The
+quantised paged kernel (int8 and e4m3 pools) is held to the limits of the
+bf16/fp32 one.
 """
 
 import numpy as np
@@ -28,7 +32,12 @@ import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+from deepspeed_tpu_torch.ops import quant
+from deepspeed_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_quant,
+    paged_attention_reference,
+)
 from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
 
 
@@ -106,6 +115,66 @@ def test_paged_kernel_matches_plain(cuda_device, case, dtype):
     assert float(rel.max()) <= rel_l2, float(rel.max())
 
 
+def _quantised_pool(pk, pv, kv):
+    """Codes and [S_flat, kvH, 1] fp32 scales of pools pk, pv (head-vector
+    blocks, the serving pool's layout)."""
+    from deepspeed_tpu_torch.inference.paged import _kv_block_quant
+
+    return (*_kv_block_quant(pk, kv), *_kv_block_quant(pv, kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["decode", "long", "prefill", "pad_row", "garbage", "hd64"])
+def test_paged_quant_kernel_matches_plain(cuda_device, case, dtype, kv):
+    kw = {"decode": dict(C=1), "long": dict(C=1, ends=(200, 639, 999), P=64),
+          "prefill": dict(C=40), "pad_row": dict(C=4, pad_row=True),
+          "garbage": dict(C=4, garbage=True), "hd64": dict(C=5, H=8, kvH=2, hd=64)}[case]
+    *arrays, bs = _paged_inputs(**kw)
+    q, pk, pv, bt, pos, lens = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    kq, ks, vq, vs = _quantised_pool(pk, pv, kv)
+    q = q.to(dtype)
+    before = paged_attention_quant.launches
+    got = paged_attention(q, kq, vq, bt, pos, bs, new_lens=lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_quant.launches == before + 1
+    want = paged_attention_reference(q, kq, vq, bt, pos, bs, lens, ks, vs).float()
+    tol, rel_l2 = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= rel_l2, float(rel.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048 * 37 + 123, 2048 * 6, 100, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizer_kernels_equal_plain(cuda_device, dtype, n):
+    """Codes and scales bit for bit, nearest and stochastic; dequantisation
+    to fp32 and bf16 bit for bit; an all-zero block; a misaligned start
+    (the scalar path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn(n + 3, generator=g, device=cuda_device) * 3).to(dtype)
+    if n > 4096:
+        x[2048:4096] = 0
+    for xs in (x[:n], x[3:]):  # x[3:] starts off 16-byte alignment
+        before = (quant.quantize_int8.launches, quant.quantize_int8_stochastic.launches)
+        q, s = quant.quantize_int8(xs)
+        sq, ss = quant.quantize_int8(xs, stochastic=True, seed=11)
+        torch.cuda.synchronize()
+        assert (quant.quantize_int8.launches, quant.quantize_int8_stochastic.launches) == \
+            (before[0] + 1, before[1] + 1)
+        rq, rs = quant.quantize_int8_reference(xs)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+        rsq, rss = quant.quantize_int8_stochastic_reference(xs, seed=11)
+        assert torch.equal(sq, rsq) and torch.equal(ss, rss)
+        for out in (torch.float32, torch.bfloat16):
+            got = quant.dequantize_int8(q, s, (xs.numel(),), out)
+            assert torch.equal(got, quant.dequantize_int8_reference(q, s, (xs.numel(),), out))
+    assert torch.equal(quant.dequantize_int8(q[1:], s, (q.numel() - 1,), torch.float32),
+                       quant.dequantize_int8_reference(q[1:], s, (q.numel() - 1,), torch.float32))
+
+
 @pytest.mark.cuda
 def test_paged_kernel_rejects_bad_inputs(cuda_device):
     *arrays, bs = _paged_inputs(C=1)
@@ -129,6 +198,19 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(paged_attention(*t[:5], bs, new_lens=t[5]),
                                paged_attention_reference(*t[:5], bs, t[5]))
     assert paged_attention.launches == before
+    kq, ks, vq, vs = _quantised_pool(t[1], t[2], "int8")
+    before = paged_attention_quant.launches
+    torch.testing.assert_close(
+        paged_attention(t[0], kq, vq, *t[3:5], bs, new_lens=t[5], k_scale=ks, v_scale=vs),
+        paged_attention_reference(t[0], kq, vq, *t[3:5], bs, t[5], ks, vs))
+    assert paged_attention_quant.launches == before
+    before = (quant.quantize_int8.launches, quant.quantize_int8_stochastic.launches,
+              quant.dequantize_int8.launches)
+    q, s = quant.quantize_int8(torch.from_numpy(x))
+    quant.quantize_int8(torch.from_numpy(x), stochastic=True)
+    quant.dequantize_int8(q, s, x.shape, torch.float32)
+    assert (quant.quantize_int8.launches, quant.quantize_int8_stochastic.launches,
+            quant.dequantize_int8.launches) == before
 
 
 FLASH_CASES = {

@@ -9,7 +9,11 @@ file (pages-per-block 1/2/8, C = 1, GQA 8/4) plus a batch with a pad row
 tails point at. Tolerance 2e-5 in fp32, the JAX pair's own. Neither package
 gives the op a backward, so the port refuses an input that requires grad
 while grad mode is on.
-The CUDA kernel is held to the plain version in ``test_torch_kernels.py``.
+The quantised form (int8 and e4m3 pools with per-(slot, kv head) fp32
+scales, dequantised after the gather) is held to both JAX versions on one
+pool quantised once by JAX's ``_kv_block_quant`` and handed to all three, at
+2e-6 as ``test_fused_pallas_loads_match_xla_fallback``.
+The CUDA kernels are held to the plain version in ``test_torch_kernels.py``.
 """
 
 import jax.numpy as jnp
@@ -17,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from deepspeed_tpu.inference.paged import _xla_paged_attention
+from deepspeed_tpu.inference.paged import _kv_block_quant, _xla_paged_attention
 from deepspeed_tpu.ops.pallas.paged_attention import flash_decode_paged
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+from deepspeed_tpu_torch.ops.paged_attention import paged_attention, paged_attention_quant
 
 
 def _setup(N=3, C=4, H=8, kvH=2, hd=32, P=6, bs=16, seed=0, ends=(5, 37, 90)):
@@ -103,3 +107,39 @@ def test_paged_refuses_gradients():
     with torch.no_grad():
         out = paged_attention(q, *t[1:5], 16, new_lens=t[5])
     assert out.shape == q.shape and not out.requires_grad
+
+
+def _to_torch(a):
+    """numpy (ml_dtypes e4m3 included) -> torch, by the bytes."""
+    a = np.asarray(a)
+    if str(a.dtype) == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
+
+
+@pytest.mark.parametrize("case", ["pages", "pad_and_garbage"])
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_paged_quantized_matches_jax(quant, case):
+    q, pk, pv, bt, pos, lens, bs = _setup() if case == "pages" else _setup_pad_and_garbage()
+    kq, ks = _kv_block_quant(jnp.asarray(pk), quant)
+    vq, vs = _kv_block_quant(jnp.asarray(pv), quant)
+    j = [jnp.asarray(a) for a in (q,)] + [kq, vq] + [jnp.asarray(a) for a in (bt, pos)]
+    xla = np.asarray(_xla_paged_attention(*j, bs, k_scale=ks, v_scale=vs))
+    pallas = np.asarray(flash_decode_paged(*j, bs, new_lens=jnp.asarray(lens),
+                                           k_scale=ks, v_scale=vs))
+    t = torch.from_numpy
+    args = (t(q), _to_torch(kq), _to_torch(vq), t(bt), t(pos), bs)
+    scales = dict(k_scale=_to_torch(ks), v_scale=_to_torch(vs))
+    got = paged_attention(*args, new_lens=t(lens), **scales).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, xla, rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(got, pallas, rtol=2e-6, atol=2e-6)
+    direct = paged_attention_quant(*args, t(lens), scales["k_scale"], scales["v_scale"])
+    np.testing.assert_array_equal(direct.numpy(), got)
+
+
+def test_paged_quantized_needs_both_scales():
+    q, pk, pv, bt, pos, lens, bs = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                                    for a in _setup())
+    with pytest.raises(ValueError, match="both"):
+        paged_attention(q, pk, pv, bt, pos, bs, new_lens=lens, k_scale=torch.ones(1))
