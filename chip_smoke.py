@@ -14,8 +14,12 @@ Phases, any failure exits non-zero:
           with an all-zero block, which must equal their plain versions bit for
           bit; the three flash-attention kernels (forward, dq, dkv) at the
           training path's shapes (llama3-1b, GPT-2-125M, Llama-3-8B heads, a
-          ragged S = 1000 with a keep-mask), each in bf16 and fp32 (tolerances
-          stated beside each check);
+          ragged S = 1000 with a keep-mask), each in bf16 and fp32; the three
+          block-sparse kernels (forward, dq, dkv) at the sparse training
+          path's shape (BigBird, block 16, S 4096, 32 heads, D 64, causal), a
+          ``fixed`` layout at block 32 and D 128, a non-causal BigBird layout
+          and a hand-made layout with empty block rows at block 64, each in
+          bf16 and fp32 (tolerances stated beside each check);
 3. serve  Llama-3-8B at full width and depth (random bf16 weights from a seed,
           a 4 GiB bf16 KV pool: 2048 x 16 slots) through
           ``InferenceEngineV2.generate``: 8 prompts of 32-1000 tokens, 64 new
@@ -48,16 +52,26 @@ Phases, any failure exits non-zero:
           before and read just after: the loss must be finite and fall, and
           the launches must equal 16 per micro-step for each flash kernel and
           33 for RMSNorm. One more step is profiled;
+   sparse the same preset and config with BigBird block-sparse attention
+          (``attn_impl="sparse"``, block 16, 1 random block, a 3-block window,
+          1 global block, seed 0) at seq 4096, micro 2, gradient accumulation
+          2: each sparse kernel launched 16 times per micro-step, the flash
+          kernels never, RMSNorm 33 times; MFU counts the attention FLOPs of
+          the layout's live tiles. One more step is profiled. Then the same
+          config through the dense flash kernels, in its own run, for its
+          step time and peak memory;
 5. slice  one micro-step (4 x 2048, a padded row) of a 2-layer, full-width
           llama3-1b through the kernels and through the plain versions: the
-          loss and every gradient leaf compared;
+          loss and every gradient leaf compared; the same for the sparse
+          config (2 x 4096, no padding mask, so the sparse kernels run);
 6. train  the GPT-2-125M headline (bench.py's ``GPT2_HEADLINE_DIMS`` with
           ``scan_layers=False, fused_ce=False``): micro 4, gradient
           accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
           flash kernel per micro-step), one more step profiled;
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (none for the
-          quantisers).
+          quantisers; for the sparse kernels SDPA with the layout expanded to
+          a token mask).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -67,6 +81,7 @@ non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -88,7 +103,8 @@ from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_f
 from deepspeed_tpu_torch.inference.paged import _kv_block_quant
 from deepspeed_tpu_torch.inference.ragged import StateManager, build_ragged_batch
 from deepspeed_tpu_torch.models import PRESETS, CausalLM, TransformerConfig, causal_lm_spec, init_params
-from deepspeed_tpu_torch.models.transformer import flatten
+from deepspeed_tpu_torch.models.transformer import flatten, sparse_layout
+from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import norms as norms_mod
 from deepspeed_tpu_torch.ops import op_builder
@@ -99,7 +115,12 @@ from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention_quant,
     paged_attention_reference,
 )
-from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
+from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
+from deepspeed_tpu_torch.utils.checks import (
+    check_sparse_kernels,
+    flash_inputs,
+    row_rel_l2,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of bytes / memory rate and operations / peak rate for the type.
@@ -168,6 +189,29 @@ FLASH_SETS = {
     "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+# BigBird as the model config gives it (the JAX defaults: 1 random block, a
+# 3-block window, 1 global block, seed 0) at the BigBird paper's length
+SPARSE_ATTENTION = {"mode": "bigbird", "block": 16}
+SPARSE_SEQ = 4096
+# the sparse kernels' timing shape: the sparse training path's attention (q
+# [B, S, H, D], k and v [B, S, kvH, D])
+SPARSE_TIME_SHAPE = dict(B=2, H=32, kvH=8, S=SPARSE_SEQ, D=64)
+# sparse-kernel check shapes (q [B, S, H, D], k and v [B, S, kvH, D]) and
+# layouts; the kernels are held by FLASH_TOL / LSE_TOL (the same rounding
+# points: P and dS cast before their products, fp32 sums in another order)
+SPARSE_SETS = {
+    "llama3-1b bigbird S=4096": dict(B=2, H=32, kvH=8, S=4096, D=64, mode="bigbird", kw={},
+                                     block=16, causal=True),
+    "fixed block 32 D=128": dict(B=1, H=16, kvH=4, S=4096, D=128, mode="fixed",
+                                 kw={"num_local_blocks": 4}, block=32, causal=True),
+    "bigbird non-causal": dict(B=2, H=32, kvH=8, S=2048, D=64, mode="bigbird", kw={}, block=16,
+                               causal=False),
+    # block rows 3 (every head) and 7 (head 1) emptied: output, dq 0 there
+    "empty rows block 64": dict(B=2, H=8, kvH=8, S=2048, D=64, mode="local",
+                                kw={"num_sliding_window_blocks": 2}, block=64, causal=True,
+                                empty=((slice(None), 3), (1, 7))),
+}
 QUANT_KERNELS = ("quantize_int8", "quantize_int8_stochastic", "dequantize_int8")
 KV_POOL_BYTES = 4 * 2 ** 30  # every serving engine's KV pool budget
 W_UP_SLICE = (4096, 14336)  # one layer of Llama-3-8B's w_up: 58,720,256 elements
@@ -193,7 +237,8 @@ def counted() -> dict:
     return {"rms_norm": rms_norm, "paged_attention": paged_attention,
             "paged_attention_quant": paged_attention_quant,
             **{name: getattr(quant_mod, name) for name in QUANT_KERNELS},
-            **{name: getattr(fa, name) for name in FLASH_KERNELS}}
+            **{name: getattr(fa, name) for name in FLASH_KERNELS},
+            **{name: getattr(bs, name) for name in SPARSE_KERNELS}}
 
 
 def launch_counts() -> dict:
@@ -400,6 +445,48 @@ def check_flash(dev, shape, dtype):
     return ok, readings, lse_err
 
 
+def sparse_set_inputs(dev, shape, dtype):
+    """q, dO ``[B, S, H, D]``, k, v ``[B, S, kvH, D]`` in ``dtype`` and the
+    layout of one SPARSE_SETS entry (its ``empty`` block rows cleared)."""
+    layout = get_sparsity_config(shape["mode"], num_heads=shape["H"], block=shape["block"],
+                                 **shape["kw"]).make_layout(shape["S"])
+    for index in shape.get("empty", ()):
+        layout[index] = 0
+    inputs = flash_inputs(dev, shape["B"], shape["S"], shape["H"], shape["kvH"], shape["D"])
+    q, k, v, do = (t.to(dtype) for t in inputs[:4])
+    return q, k, v, do, layout
+
+
+def check_sparse(dev, shape, dtype):
+    """The three sparse kernels against their plain versions: (ok, {name:
+    (row rel L2, max abs)}, lse error)."""
+    q, k, v, do, layout = sparse_set_inputs(dev, shape, dtype)
+    readings, lse_err, dead_exact = check_sparse_kernels(q, k, v, do, layout, shape["block"],
+                                                         shape["causal"])
+    ok = (all(rel <= FLASH_TOL[dtype] for rel, _ in readings.values()) and lse_err <= LSE_TOL
+          and dead_exact)
+    return ok, readings, lse_err
+
+
+def live_tiles(layout, causal=True):
+    """Tiles the kernels compute: layout entries, with ``causal`` only those
+    whose key block is not after the query block (summed over heads)."""
+    live = np.asarray(layout) != 0
+    return int((np.tril(live) if causal else live).sum())
+
+
+def sparse_flops_per_token(cfg, seq, dev):
+    """Training FLOPs per token with the attention term of the layout's live
+    tiles: the JAX formula's 12 * L * hidden * S counts every query against
+    all S keys (fwd + bwd, 2 products); here each query of a head counts
+    ``block * live tiles of its block row`` keys, averaged over rows and
+    summed over heads. Returns (flops per token, live tiles)."""
+    layout, block, _ = sparse_layout(cfg.sparse_attention, cfg.num_heads, seq, dev)
+    live = live_tiles(layout)
+    attn = 12 * cfg.num_layers * cfg.dims_per_head * block * live / (seq // block)
+    return 6 * cfg.num_params() + attn, live
+
+
 # ------------------------------------------------------------------ timing
 def time_fn(fn, iters=100, warmup=10, flush=None):
     """Median device milliseconds per call, by CUDA events. The GPU is held
@@ -537,6 +624,20 @@ def phase_checks(dev, max_err):
                 f"{lse_err:.3e}; tol {FLASH_TOL[dtype]} / lse {LSE_TOL} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"flash {label} {dtype}")
+            torch.cuda.empty_cache()
+    for label, shape in SPARSE_SETS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            ok, readings, lse_err = check_sparse(dev, shape, dtype)
+            if dtype == torch.bfloat16:
+                for kernel, parts in (("sparse_fwd", ("out",)), ("sparse_bwd_dq", ("dq",)),
+                                      ("sparse_bwd_dkv", ("dk", "dv"))):
+                    max_err[kernel] = max([max_err[kernel]] + [readings[p][1] for p in parts])
+            text = ", ".join(f"{n} {r:.3e} (max_abs {a:.3e})" for n, (r, a) in readings.items())
+            log(f"[check] sparse {label} {str(dtype)[6:]}: row rel L2 {text}; lse max_abs "
+                f"{lse_err:.3e}; tol {FLASH_TOL[dtype]} / lse {LSE_TOL}, empty rows exact "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"sparse {label} {dtype}")
             torch.cuda.empty_cache()
     return failures, checks
 
@@ -787,9 +888,11 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
     return by_path
 
 
-def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profile=False):
+def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profile=False,
+                flops_per_token=None):
     """Phases 4 and 6: ``initialize`` + ``train_batch`` at full size. Returns
-    the launch counts of the counted steps, or None on failure."""
+    the launch counts of the counted steps, or None on failure. MFU uses
+    ``flops_per_token`` where given, else the JAX formula."""
     t0 = time.perf_counter()
     masters = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
     engine, *_ = deepspeed_tpu_torch.initialize(
@@ -826,7 +929,7 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
     timed = float(np.median(step_s[TRAIN_WARMUP:]))
     tokens = engine.train_batch_size * seq
     tok_s = tokens / timed
-    fpt = cfg.flops_per_token(seq)
+    fpt = cfg.flops_per_token(seq) if flops_per_token is None else flops_per_token
     mfu = tok_s * fpt / PEAK_FLOPS[torch.bfloat16]
     log(f"[{tag}] losses {[round(x, 4) for x in losses]}, last grad_norm {grad_norm:.4f}; "
         f"step times {[round(x, 4) for x in step_s]} s")
@@ -854,21 +957,29 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
     return launches
 
 
-def phase_slice_check(dev, results) -> bool:
+def phase_slice_check(dev, results, sparse=False) -> bool:
     """Phase 5: loss and gradients of one micro-step of a 2-layer full-width
-    llama3-1b, through the kernels and through the plain versions."""
-    cfg = dataclasses.replace(PRESETS["llama3-1b"], num_layers=2, dtype=torch.bfloat16)
+    llama3-1b, through the kernels and through the plain versions: flash
+    attention at 4 x 2048 with a padded row, or (``sparse``) the sparse
+    config at 2 x 4096 without a padding mask (which would take the dense
+    path)."""
+    tag = "slice sparse" if sparse else "slice"
+    over = dict(attn_impl="sparse", sparse_attention=SPARSE_ATTENTION) if sparse else {}
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], num_layers=2, dtype=torch.bfloat16, **over)
     params = init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
     flat = flatten(params)
     for t in flat.values():
         t.requires_grad_(True)
     model = CausalLM(cfg)
     rng = np.random.default_rng(2)
-    B, S = 4, 2048
+    B, S = (2, SPARSE_SEQ) if sparse else (4, 2048)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
-    mask = torch.ones(B, S, dtype=torch.int32, device=dev)
-    mask[1, 1500:] = 0
-    batch = {"input_ids": ids, "attention_mask": mask}
+    batch = {"input_ids": ids}
+    if not sparse:
+        mask = torch.ones(B, S, dtype=torch.int32, device=dev)
+        mask[1, 1500:] = 0
+        batch["attention_mask"] = mask
+    module, kernels = (bs, SPARSE_KERNELS) if sparse else (fa, FLASH_KERNELS)
 
     def step():
         loss, _ = model(params, batch, train=True)
@@ -879,11 +990,11 @@ def phase_slice_check(dev, results) -> bool:
     torch.cuda.synchronize()
     launches = launch_counts()
     expect = dict({k: 0 for k in launches}, rms_norm=2 * cfg.num_layers + 1,
-                  **{k: cfg.num_layers for k in FLASH_KERNELS})
-    with mock.patch.object(fa, "flash_fwd", fa.flash_fwd_reference), \
-            mock.patch.object(fa, "flash_bwd_dq", fa.flash_bwd_dq_reference), \
-            mock.patch.object(fa, "flash_bwd_dkv", fa.flash_bwd_dkv_reference), \
-            mock.patch.object(norms_mod, "rms_norm_fwd", rms_norm_reference):
+                  **{k: cfg.num_layers for k in kernels})
+    with contextlib.ExitStack() as stack:
+        for k in kernels:
+            stack.enter_context(mock.patch.object(module, k, getattr(module, f"{k}_reference")))
+        stack.enter_context(mock.patch.object(norms_mod, "rms_norm_fwd", rms_norm_reference))
         loss_p, grads_p = step()
     torch.cuda.synchronize()
     plain_launches = launch_counts()
@@ -895,14 +1006,14 @@ def phase_slice_check(dev, results) -> bool:
     ok = (launches == expect and plain_launches == launches and math.isfinite(loss_rel)
           and loss_rel <= SLICE_LOSS_REL and all(r <= SLICE_GRAD_REL_L2 for r in rels.values())
           and all(bool(torch.isfinite(g).all()) for g in grads_k))
-    log(f"[slice] 2-layer llama3-1b micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
+    log(f"[{tag}] 2-layer llama3-1b micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
         f"{float(loss_p):.5f} (rel {loss_rel:.2e}, bound {SLICE_LOSS_REL}); gradient leaves rel L2 "
         f"max {rels[worst]:.3e} at {worst} (bound {SLICE_GRAD_REL_L2}); launches {launches} "
         f"(expected {expect}), plain run launched none: {plain_launches == launches} "
         f"{'ok' if ok else 'FAIL'}")
     for path, r in sorted(rels.items()):
-        log(f"[slice]   {path}: {r:.3e}")
-    results["slice"] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+        log(f"[{tag}]   {path}: {r:.3e}")
+    results[tag] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
                         "loss_rel": loss_rel, "grad_rel_l2": rels}
     return ok
 
@@ -918,6 +1029,99 @@ def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel):
         return 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * 2 * B * H * pairs * hd
     # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
     return 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * 2 * B * H * pairs * hd
+
+
+def sparse_bytes_flops(B, H, kvH, S, D, itemsize, layout, block, kernel):
+    """Bytes the kernel must move (each input read once, each output written
+    once: q, dO and out at H heads and k, v at kvH in the input dtype, lse and
+    delta fp32, dq and the per-query-head dk, dv fp32, and of the layout
+    lists the counts and the entries below them, the only ones read) and the
+    flops of its products over the live tiles."""
+    x, kv, x32, row = (B * S * H * D * itemsize, B * S * kvH * D * itemsize, B * S * H * D * 4,
+                       B * H * S * 4)
+    _, ncols = bs.layout_to_lists(layout)
+    _, nrows = bs.layout_to_lists_t(layout)
+    lists = lambda counts: (counts.size + int(counts.sum())) * 4  # noqa: E731
+    tile = 2 * block * block * D * B * live_tiles(layout)  # one product over the live tiles
+    if kernel == "sparse_fwd":  # q, k, v -> out, lse; products q.k, p.v
+        return 2 * x + 2 * kv + row + lists(ncols), 2 * tile
+    if kernel == "sparse_bwd_dq":  # q, k, v, dO, lse, delta -> dq; q.k, dO.v, ds.k
+        return 2 * x + 2 * kv + 2 * row + x32 + lists(ncols), 3 * tile
+    # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
+    return 2 * x + 2 * kv + 2 * row + 2 * x32 + lists(nrows), 4 * tile
+
+
+def time_sparse(dev, launches, max_err, timing):
+    """The sparse kernels at the sparse training path's shape (B 2, 32 query
+    and 8 kv heads, S 4096, D 64, BigBird block 16, causal, bf16) beside their
+    bounds, plain versions and SDPA with the layout expanded to a token mask
+    (the same function, dense)."""
+    B, H, kvH, S, D = (SPARSE_TIME_SHAPE[key] for key in ("B", "H", "kvH", "S", "D"))
+    layout, block, (cols, ncols, rows, nrows) = sparse_layout(
+        tuple(sorted(SPARSE_ATTENTION.items())), H, S, dev)
+    q, k, v, do = (t.to(torch.bfloat16) for t in flash_inputs(dev, B, S, H, kvH, D)[:4])
+    qs = bs.prescale_q(q)
+    out, lse = bs.sparse_fwd(qs, k, v, cols, ncols, block)
+    delta = bs.sparse_delta(do, out)
+    calls = {
+        "sparse_fwd": (lambda: bs.sparse_fwd(qs, k, v, cols, ncols, block),
+                       lambda: bs.sparse_fwd_reference(qs, k, v, cols, ncols, block)),
+        "sparse_bwd_dq": (lambda: bs.sparse_bwd_dq(qs, k, v, do, lse, delta, cols, ncols, block),
+                          lambda: bs.sparse_bwd_dq_reference(qs, k, v, do, lse, delta, cols,
+                                                             ncols, block)),
+        "sparse_bwd_dkv": (lambda: bs.sparse_bwd_dkv(qs, k, v, do, lse, delta, rows, nrows,
+                                                     block),
+                           lambda: bs.sparse_bwd_dkv_reference(qs, k, v, do, lse, delta, rows,
+                                                               nrows, block)),
+    }
+    # library yardstick (never called by the port): SDPA on [B, H, S, D] with
+    # k and v repeated to H heads and a [1, H, S, S] boolean mask, the layout
+    # expanded to tokens and the causal mask
+    mask = bs.token_mask(torch.as_tensor(layout != 0, device=dev), block, True)[None]
+    ql = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kl, vl = (t.repeat_interleave(H // kvH, 2).transpose(1, 2).contiguous().requires_grad_(True)
+              for t in (k, v))
+    dol = do.transpose(1, 2).contiguous()
+    sdpa_fwd = time_fn(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask),
+                       iters=20)
+    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), dol,
+                                                   retain_graph=True), iters=20)
+    library = {"sparse_fwd": sdpa_fwd, "sparse_bwd_dq": None, "sparse_bwd_dkv": None}
+    sources = {"sparse_fwd": ("sparse_attention_fwd.cu", 85),
+               "sparse_bwd_dq": ("sparse_attention_bwd_dq.cu", 171),
+               "sparse_bwd_dkv": ("sparse_attention_bwd_dkv.cu", 205)}
+    live = live_tiles(layout)
+    kernels = []
+    for name, (kernel_fn, plain_fn) in calls.items():
+        nbytes, flops = sparse_bytes_flops(B, H, kvH, S, D, 2, layout, block, name)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t = {"ms": time_fn(kernel_fn, iters=100),
+             "plain_ms": time_fn(plain_fn, iters=5, warmup=1, flush=lambda: None),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library[name]}
+        timing[f"{name}[{B},{H},{S},{D}]"] = t
+        lib_text = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"[time] {name} B {B} H {H} kvH {kvH} S {S} D {D} bigbird block {block} ({live} live "
+            f"tiles) "
+            f"bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA(token mask) "
+            f"forward {lib_text}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; {nbytes / t['ms'] / 1e6:.1f} GB/s)")
+        src, line = sources[name]
+        kernels.append(dict(name=name, route="cuda", source=f"deepspeed_tpu_torch/csrc/{src}",
+                            replaces=f"deepspeed_tpu/ops/pallas/sparse_attention.py:{line}",
+                            launches=launches[name], max_abs_err=max_err[name],
+                            shape=f"q [{B}, {S}, {H}, {D}], k, v [{B}, {S}, {kvH}, {D}], "
+                                  f"bigbird block {block}, bf16",
+                            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms")}))
+    bwd_sum = timing[f"sparse_bwd_dq[{B},{H},{S},{D}]"]["ms"] + \
+        timing[f"sparse_bwd_dkv[{B},{H},{S},{D}]"]["ms"]
+    timing["sdpa_masked_backward_vs_sparse_dq_plus_dkv"] = {"sdpa_bwd_ms": sdpa_bwd,
+                                                            "dq_plus_dkv_ms": bwd_sum}
+    log(f"[time] sparse backward: SDPA's whole backward with the token mask {sdpa_bwd:.4f} ms "
+        f"beside dq + dkv {bwd_sum:.4f} ms (delta, plain fp32, excluded)")
+    return kernels
 
 
 def phase_time(dev, checks, launches, max_err, results):
@@ -1095,6 +1299,9 @@ def phase_time(dev, checks, launches, max_err, results):
     timing["sdpa_backward_vs_dq_plus_dkv"] = {"sdpa_bwd_ms": sdpa_bwd, "dq_plus_dkv_ms": bwd_sum}
     log(f"[time] backward: SDPA's whole backward {sdpa_bwd:.4f} ms beside dq + dkv "
         f"{bwd_sum:.4f} ms (delta, plain fp32, excluded)")
+    del q, k, v, do, qs, out, lse, delta, qt, kt, vt, dot, sdpa_out
+    torch.cuda.empty_cache()
+    kernels += time_sparse(dev, launches, max_err, timing)
     results["timing"] = timing
     return kernels
 
@@ -1114,7 +1321,7 @@ def main(argv=None) -> int:
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
-               **{k: 0.0 for k in FLASH_KERNELS}}
+               **{k: 0.0 for k in FLASH_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -1163,11 +1370,39 @@ def main(argv=None) -> int:
     if llama_launches is None:
         return 1
 
-    # ---- 5. whole-slice check, kernels vs plain versions
-    if not phase_slice_check(dev, results):
-        log("[slice] FAILED: the kernels' micro-step disagrees with the plain versions'")
+    # ---- 4b. the same preset with BigBird block-sparse attention at seq
+    # 4096; then the same config through the dense flash kernels, a run of
+    # its own whose launches are not summed below
+    sparse = dataclasses.replace(llama, attn_impl="sparse", sparse_attention=SPARSE_ATTENTION)
+    sparse_fpt, live = sparse_flops_per_token(sparse, SPARSE_SEQ, dev)
+    log(f"[train llama3-1b sparse] layout: {live} live causal tiles of 16 x 16 over "
+        f"{sparse.num_heads} heads ({live / sparse.num_heads / (SPARSE_SEQ // 16):.3f} per block "
+        f"row); {sparse_fpt / 1e9:.3f} GFLOP/token against the dense formula's "
+        f"{sparse.flops_per_token(SPARSE_SEQ) / 1e9:.3f}")
+    sparse_launches = phase_train(
+        dev, "train llama3-1b sparse", sparse, micro=2, seq=SPARSE_SEQ, gas=2,
+        expect_per_micro=dict({k: sparse.num_layers for k in SPARSE_KERNELS},
+                              rms_norm=2 * sparse.num_layers + 1),
+        results=results, profile=True, flops_per_token=sparse_fpt)
+    if sparse_launches is None:
         return 1
-    torch.cuda.empty_cache()
+    results["train llama3-1b sparse"]["live_tiles"] = live
+    dense_tag = "train llama3-1b dense S=4096"
+    if phase_train(dev, dense_tag, llama, micro=2, seq=SPARSE_SEQ, gas=2,
+                   expect_per_micro=per_micro, results=results) is None:
+        return 1
+    sp, dn = results["train llama3-1b sparse"], results[dense_tag]
+    log(f"[train llama3-1b sparse] against the dense flash kernels at seq {SPARSE_SEQ}: step "
+        f"{sp['median_step_s']:.4f} s vs {dn['median_step_s']:.4f} s "
+        f"({dn['median_step_s'] / sp['median_step_s']:.3f}x), peak memory "
+        f"{sp['peak_mem_gb']:.2f} GB vs {dn['peak_mem_gb']:.2f} GB")
+
+    # ---- 5. whole-slice checks, kernels vs plain versions
+    for sparse_slice in (False, True):
+        if not phase_slice_check(dev, results, sparse=sparse_slice):
+            log("[slice] FAILED: the kernels' micro-step disagrees with the plain versions'")
+            return 1
+        torch.cuda.empty_cache()
 
     # ---- 6. training the GPT-2-125M headline
     gpt2 = TransformerConfig(**GPT2_HEADLINE_DIMS, scan_layers=False, fused_ce=False,
@@ -1180,9 +1415,9 @@ def main(argv=None) -> int:
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
     # over the counted runs of the paths (serving bf16 and quantised, the
-    # stochastic quantiser's call, both trainings)
+    # stochastic quantiser's call, the three trainings)
     by_path = {"serve": serve_launches, **quant_launches, "train llama3-1b": llama_launches,
-               "train gpt2-125m": gpt2_launches}
+               "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path
     kernels = phase_time(dev, checks, launches, max_err, results)

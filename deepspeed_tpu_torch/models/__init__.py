@@ -8,7 +8,8 @@ from deepspeed_tpu_torch.models.transformer import (
     causal_lm_spec,
     cross_entropy_loss,
     init_params,
+    sparse_layout,
 )
 
 __all__ = ["PRESETS", "CausalLM", "TransformerConfig", "causal_lm_spec", "cross_entropy_loss",
-           "init_params", "params_from_numpy", "params_to_numpy"]
+           "init_params", "params_from_numpy", "params_to_numpy", "sparse_layout"]

@@ -4,8 +4,9 @@ forward (counterpart of ``deepspeed_tpu/models/transformer.py``).
 One config covers the two dense families the port trains: Llama-style
 (RMSNorm, half-split RoPE, SiLU-GLU MLP, GQA, untied head, no biases) and
 GPT-2-style (LayerNorm, learned positions, GELU MLP, tied embeddings,
-biases). ``TransformerConfig`` keeps the JAX package's field names and
-defaults; a setting outside those families (ALiBi, MoE, parallel blocks,
+biases), with flash or block-sparse attention (``attn_impl="sparse"``).
+``TransformerConfig`` keeps the JAX package's field names and defaults; a
+setting outside those families (ALiBi, MoE, parallel blocks,
 partial or interleaved rotary, an LM-head bias, remat, dropout) raises
 ``NotImplementedError`` at construction instead of being silently ignored.
 ``scan_layers`` only chooses the numpy layout of ``params_from_numpy`` /
@@ -21,8 +22,8 @@ layers stacked ``[L, ...]``: ``embed.embedding [V, E]``, ``pos_embed [T, E]``
 [E]``, ``lm_head.kernel [E, V]`` (untied only).
 
 ``CausalLM`` is the training forward (``CausalLM.__call__`` of the JAX
-package, dense path): embedding, learned positions, pre-norm blocks with
-flash attention, final norm, then the fused chunked cross entropy or the
+package): embedding, learned positions, pre-norm blocks with flash or
+block-sparse attention, final norm, then the fused chunked cross entropy or the
 logits and ``cross_entropy_loss``.
 """
 
@@ -36,14 +37,26 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.attention import PORTED_IMPLS, causal_attention
+from deepspeed_tpu_torch.ops.block_sparse import layout_lists
 from deepspeed_tpu_torch.ops.cross_entropy import lm_head_cross_entropy
 from deepspeed_tpu_torch.ops.norms import rms_norm
 from deepspeed_tpu_torch.ops.rope import rope
+from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_attention, get_sparsity_config
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 NORMS = ("rmsnorm", "layernorm")
 ACTIVATIONS = ("silu_glu", "gelu", "gelu_exact", "relu")
 POSITIONS = ("rope", "learned")
+ATTN_IMPLS = PORTED_IMPLS + ("sparse",)
+
+
+def _freeze_pairs(value) -> tuple:
+    """A dict (or pairs) as a sorted tuple of pairs, list values as tuples,
+    so that the frozen config stays hashable."""
+    def freeze(v):
+        return tuple(freeze(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+    return tuple(sorted((key, freeze(v)) for key, v in dict(value).items()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +89,11 @@ class TransformerConfig:
     tie_embeddings: bool = False
     remat: bool = False
     scan_layers: bool = True  # numpy parameter layout only (stacked vs layer_{i})
-    attn_impl: str = "auto"  # auto | flash
+    attn_impl: str = "auto"  # auto | flash | sparse
+    # block-sparse attention (attn_impl="sparse"): {"mode": ..., "block": ...,
+    # and the sparsity config's own fields}; frozen to a sorted tuple of pairs,
+    # list values to tuples
+    sparse_attention: Optional[Any] = None
     # flash scheduling knobs of the JAX kernel (block_q / block_k / k_splits),
     # accepted and ignored; frozen to a tuple of pairs
     attn_kwargs: Optional[Any] = None
@@ -87,10 +104,11 @@ class TransformerConfig:
     dtype: torch.dtype = torch.float32  # activation dtype
 
     def __post_init__(self):
-        if isinstance(self.attn_kwargs, dict):
-            object.__setattr__(self, "attn_kwargs", tuple(sorted(self.attn_kwargs.items())))
+        for name in ("sparse_attention", "attn_kwargs"):
+            if getattr(self, name) is not None:
+                object.__setattr__(self, name, _freeze_pairs(getattr(self, name)))
         choices = {"norm": (self.norm, NORMS), "activation": (self.activation, ACTIVATIONS),
-                   "position": (self.position, POSITIONS), "attn_impl": (self.attn_impl, PORTED_IMPLS)}
+                   "position": (self.position, POSITIONS), "attn_impl": (self.attn_impl, ATTN_IMPLS)}
         for name, (got, allowed) in choices.items():
             if got not in allowed:
                 raise NotImplementedError(
@@ -117,6 +135,14 @@ class TransformerConfig:
             raise ValueError(f"num_heads={self.num_heads} not divisible by kv heads {self.kv_heads}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"TransformerConfig.dtype={self.dtype}: fp32 | bf16 only")
+        if self.attn_impl == "sparse" and not self.sparse_attention:
+            raise ValueError(
+                "attn_impl='sparse' needs a sparse_attention config dict, e.g. "
+                "{'mode': 'bigbird', 'block': 16, 'num_random_blocks': 1}")
+
+    @property
+    def sparse_attention_dict(self) -> Optional[dict]:
+        return dict(self.sparse_attention) if self.sparse_attention else None
 
     @property
     def kv_heads(self) -> int:
@@ -275,6 +301,21 @@ def rope_tables(seq_len: int, dim: int, theta: float,
     return torch.cos(angles), torch.sin(angles)
 
 
+@functools.lru_cache(maxsize=16)
+def sparse_layout(sparse_attention: tuple, num_heads: int, seq_len: int, device):
+    """``(layout [H, S/block, S/block], block, lists)`` of a frozen
+    sparse_attention config at ``seq_len``, ``lists`` the kernels'
+    ``layout_lists`` on ``device``: mode and block default to "bigbird" and
+    16. Cached, as the JAX package builds the layout once at trace time;
+    exact, because ``make_layout`` seeds its own generator on every call."""
+    sa = dict(sparse_attention)
+    mode = sa.pop("mode", "bigbird")
+    block = sa.pop("block", 16)
+    layout = get_sparsity_config(mode, num_heads=num_heads, block=block, **sa).make_layout(seq_len)
+    layout.setflags(write=False)  # shared by every hit, and its lists are built once
+    return layout, block, layout_lists(layout, device)
+
+
 def apply_qk_rope(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary embeddings on q ``[B, S, H, hd]`` and k ``[B, S, kvH, hd]``."""
@@ -363,7 +404,15 @@ class CausalLM(torch.nn.Module):
         v = _dense(p["wv"], x, cfg.dtype)
         if cfg.position == "rope":
             q, k = apply_qk_rope(cfg, q, k, positions)
-        out = causal_attention(q, k, v, mask=mask, impl=cfg.attn_impl, **dict(cfg.attn_kwargs or ()))
+        if cfg.attn_impl == "sparse":
+            layout, block, lists = sparse_layout(cfg.sparse_attention, cfg.num_heads,
+                                                 q.shape[1], q.device)
+            # query head h reads kv head h // G (the JAX model's jnp.repeat) in
+            # the kernels; a key padding mask takes the dense path, as in JAX
+            out = block_sparse_attention(q, k, v, layout, block=block, pad_mask=mask, lists=lists)
+        else:
+            out = causal_attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+                                   **dict(cfg.attn_kwargs or ()))
         wo = p["wo"]["kernel"].to(cfg.dtype)  # [H, hd, E]
         H, hd, E = wo.shape
         y = (out.reshape(-1, H * hd) @ wo.reshape(H * hd, E)).reshape(*out.shape[:-2], E)

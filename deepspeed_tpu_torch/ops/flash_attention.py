@@ -155,12 +155,6 @@ def _check(qs, k, v, keep, *more):
             raise ValueError(f"flash attention: {name} must be 16-byte aligned")
 
 
-def _launch(lib_name: str, entry: str, *args):
-    err = getattr(op_builder.load(lib_name), entry)(*args)
-    if err:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -173,9 +167,10 @@ def flash_fwd(qs, k, v, keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, H, hd = qs.shape
     out = torch.empty_like(qs)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=qs.device)
-    _launch("flash_attention_fwd", "ds_flash_fwd", qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _ptr(keep), out.data_ptr(), lse.data_ptr(), B, S, H, k.shape[2], hd,
-            op_builder.DTYPE_CODES[qs.dtype], torch.cuda.current_stream(qs.device).cuda_stream)
+    op_builder.launch("flash_attention_fwd", "ds_flash_fwd", qs.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), _ptr(keep), out.data_ptr(), lse.data_ptr(), B, S, H,
+                      k.shape[2], hd, op_builder.DTYPE_CODES[qs.dtype],
+                      torch.cuda.current_stream(qs.device).cuda_stream)
     flash_fwd.launches += 1
     return out, lse
 
@@ -187,10 +182,11 @@ def flash_bwd_dq(qs, k, v, keep, do, lse, delta) -> torch.Tensor:
     _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
     B, S, H, hd = qs.shape
     dq = torch.empty_like(qs)
-    _launch("flash_attention_bwd_dq", "ds_flash_bwd_dq", qs.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B, S, H, k.shape[2], hd, ctypes.c_float(hd ** -0.5),
-            op_builder.DTYPE_CODES[qs.dtype], torch.cuda.current_stream(qs.device).cuda_stream)
+    op_builder.launch("flash_attention_bwd_dq", "ds_flash_bwd_dq", qs.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dq.data_ptr(), B, S, H, k.shape[2], hd, ctypes.c_float(hd ** -0.5),
+                      op_builder.DTYPE_CODES[qs.dtype],
+                      torch.cuda.current_stream(qs.device).cuda_stream)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -202,10 +198,11 @@ def flash_bwd_dkv(qs, k, v, keep, do, lse, delta) -> Tuple[torch.Tensor, torch.T
     _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
     B, S, H, hd = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", "ds_flash_bwd_dkv", qs.data_ptr(), k.data_ptr(),
-            v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd, ctypes.c_float(_LN2),
-            op_builder.DTYPE_CODES[qs.dtype], torch.cuda.current_stream(qs.device).cuda_stream)
+    op_builder.launch("flash_attention_bwd_dkv", "ds_flash_bwd_dkv", qs.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+                      ctypes.c_float(_LN2), op_builder.DTYPE_CODES[qs.dtype],
+                      torch.cuda.current_stream(qs.device).cuda_stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
 

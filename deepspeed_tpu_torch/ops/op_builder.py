@@ -81,6 +81,20 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _F, _I, _P],
     },
+    "sparse_attention_fwd": {
+        # q, k, v, cols, ncols, out, lse, B, H, kvH, S, hd, block, A, causal, dtype, stream
+        "ds_sparse_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    },
+    "sparse_attention_bwd_dq": {
+        # q, k, v, dout, lse, delta, cols, ncols, dq, B, H, kvH, S, hd, block, A, causal,
+        # dtype, stream
+        "ds_sparse_bwd_dq": [_P] * 9 + [_I] * 9 + [_P],
+    },
+    "sparse_attention_bwd_dkv": {
+        # q, k, v, dout, lse, delta, rows, nrows, dk, dv, B, H, kvH, S, hd, block, Ar,
+        # causal, dtype, stream
+        "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 9 + [_P],
+    },
 }
 
 
@@ -153,3 +167,10 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call C entry ``entry`` of library ``name``; raise if it reports an error."""
+    err = getattr(load(name), entry)(*args)
+    if err:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")

@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops import block_sparse as bs
+
 
 def row_rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """Largest relative L2 error of a row vector (last dim). A row's norm is
@@ -34,3 +36,37 @@ def flash_inputs(dev, B, S, H, kvH, hd, keep_lens=None, seed=0):
         keep = torch.from_numpy(
             (np.arange(S)[None, :] < np.asarray(keep_lens)[:, None]).astype(np.int32)).to(dev)
     return q, k, v, do, keep
+
+
+def check_sparse_kernels(q, k, v, do, layout, block, causal):
+    """The three block-sparse kernels against their plain versions on the same
+    inputs (q, dO ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]`` as
+    ``flash_inputs`` gives them; q unscaled; the plain dq and dkv take the
+    kernel's lse and delta, so each kernel is held alone). Returns ``({name: (row rel L2, max abs)}
+    for out, dq, dk, dv; the lse's max abs error over rows with a live key;
+    whether every row with none has output 0, dq 0 and the lse sentinel)``."""
+    qs = bs.prescale_q(q)
+    cols, ncols, rows, nrows = bs.layout_arrays(layout, q.device)
+    out, lse = bs.sparse_fwd(qs, k, v, cols, ncols, block, causal)
+    delta = bs.sparse_delta(do, out)
+    dq = bs.sparse_bwd_dq(qs, k, v, do, lse, delta, cols, ncols, block, causal)
+    dk, dv = bs.sparse_bwd_dkv(qs, k, v, do, lse, delta, rows, nrows, block, causal)
+    if q.is_cuda:
+        torch.cuda.synchronize(q.device)
+    want_out, want_lse = bs.sparse_fwd_reference(qs, k, v, cols, ncols, block, causal)
+    want_dq = bs.sparse_bwd_dq_reference(qs, k, v, do, lse, delta, cols, ncols, block, causal)
+    want_dk, want_dv = bs.sparse_bwd_dkv_reference(qs, k, v, do, lse, delta, rows, nrows,
+                                                   block, causal)
+    readings = {}
+    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        finite = bool(torch.isfinite(got).all())
+        readings[name] = (row_rel_l2(got, want) if finite else float("inf"),
+                          float((got.float() - want.float()).abs().max()))
+    live = want_lse != bs.NEG_INF
+    lse_err = float((lse - want_lse).abs()[live].max()) if bool(live.any()) else 0.0
+    dead = ~live  # [B, H, S]
+    dead_exact = (bool((out.transpose(1, 2)[dead] == 0).all())
+                  and bool((dq.transpose(1, 2)[dead] == 0).all())
+                  and bool((lse[dead] == bs.NEG_INF).all()))
+    return readings, lse_err, dead_exact

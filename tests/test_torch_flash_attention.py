@@ -125,3 +125,22 @@ def test_scheduling_kwargs_accepted_alibi_and_bias_refused():
         causal_attention(qt, kt, vt, impl="xla")
     with pytest.raises(TypeError):
         causal_attention(qt, kt, vt, block_m=8)
+
+
+@pytest.mark.parametrize("S,kvH", [(64, 4), (100, 1)])
+def test_left_padded_rows_match_jax_flash(S, kvH):
+    """Left padding: row 1 drops its first S/4 keys, so its first S/4 queries
+    see no key at all. The port gives them output 0 and zero gradients, as
+    JAX's flash kernels (interpret mode) do; every other value within 1e-5."""
+    q, k, v, do, _ = _inputs(S, kvH, 16, False)
+    mask = np.ones((q.shape[0], S), np.int32)
+    mask[1, : S // 4] = 0
+    got = _port(q, k, v, do, mask)
+    pallas = jops.dispatch("causal_attention", "pallas")
+    want = _jax(lambda a, b, c, m: pallas(a, b, c, mask=m, block_q=BLOCK, block_k=BLOCK),
+                q, k, v, do, mask)
+    for g, w in zip(got, want):
+        _close(g, w)
+    out, dq = got[0], got[1]
+    assert np.all(out[1, : S // 4] == 0) and np.all(dq[1, : S // 4] == 0)
+    assert np.all(want[0][1, : S // 4] == 0)

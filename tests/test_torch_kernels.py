@@ -23,7 +23,11 @@ visible key must be exactly 0. The quantiser kernels (int8 nearest and
 stochastic, dequantisation) must equal their plain versions bit for bit:
 both divide and round in IEEE fp32 and hash the same counters. The
 quantised paged kernel (int8 and e4m3 pools) is held to the limits of the
-bf16/fp32 one.
+bf16/fp32 one. The three block-sparse kernels (forward, dq, dkv) are held to
+their plain versions by the flash kernels' rule and limits, over blocks 16,
+32 and 64, D 64 and 128, causal and not, k and v at fewer heads than q or as
+many, and a layout with empty block rows (output, dq and the lse sentinel
+exact there).
 """
 
 import numpy as np
@@ -38,7 +42,13 @@ from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention_quant,
     paged_attention_reference,
 )
-from deepspeed_tpu_torch.utils.checks import flash_inputs, row_rel_l2
+from deepspeed_tpu_torch.ops import block_sparse as bs
+from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
+from deepspeed_tpu_torch.utils.checks import (
+    check_sparse_kernels,
+    flash_inputs,
+    row_rel_l2,
+)
 
 
 @pytest.fixture
@@ -279,3 +289,71 @@ def test_cpu_flash_takes_the_plain_versions():
     out.backward(do)
     assert q.grad is not None and q.grad.shape == q.shape
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
+
+
+SPARSE_CASES = {
+    # name: (sparsity config, its fields, block, S, heads, kv heads, D, causal)
+    "bigbird_b16_d64": ("bigbird", {}, 16, 512, 4, 2, 64, True),
+    "bigbird_b16_d128_noncausal": ("bigbird", {"num_random_blocks": 2}, 16, 256, 2, 2, 128,
+                                   False),
+    "fixed_b32_d128": ("fixed", {"num_local_blocks": 4}, 32, 512, 2, 1, 128, True),
+    "bslongformer_b64_d64_noncausal": ("bslongformer", {"global_block_indices": (0, 3)},
+                                       64, 512, 2, 2, 64, False),
+    "variable_b64_d128": ("variable", {"num_random_blocks": 1, "local_window_blocks": (2, 3)},
+                          64, 512, 2, 1, 128, True),
+    "empty_rows_b32_d64": ("local", {"num_sliding_window_blocks": 2}, 32, 256, 3, 3, 64, True),
+}
+
+
+def _sparse_case(case, dev, dtype):
+    mode, kw, block, S, H, kvH, D, causal = SPARSE_CASES[case]
+    layout = get_sparsity_config(mode, num_heads=H, block=block, **kw).make_layout(S)
+    if case.startswith("empty_rows"):
+        layout[:, 2] = 0
+        layout[1, 5] = 0
+    q, k, v, do = (t.to(dtype) for t in flash_inputs(dev, 2, S, H, kvH, D, seed=4)[:4])
+    return q, k, v, do, layout, block, causal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_kernels_match_plain(cuda_device, case, dtype):
+    before = (bs.sparse_fwd.launches, bs.sparse_bwd_dq.launches, bs.sparse_bwd_dkv.launches)
+    readings, lse_err, dead_exact = check_sparse_kernels(*_sparse_case(case, cuda_device, dtype))
+    after = (bs.sparse_fwd.launches, bs.sparse_bwd_dq.launches, bs.sparse_bwd_dkv.launches)
+    assert after == tuple(b + 1 for b in before)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert all(rel <= tol for rel, _ in readings.values()), readings
+    assert lse_err <= 1e-4 and dead_exact
+
+
+@pytest.mark.cuda
+def test_sparse_kernels_reject_bad_inputs(cuda_device):
+    q, k, v, do, layout, block, causal = _sparse_case("bigbird_b16_d64", cuda_device,
+                                                      torch.bfloat16)
+    cols, ncols, _, _ = bs.layout_arrays(layout, cuda_device)
+    with pytest.raises(ValueError):  # head dim 32
+        bs.sparse_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                      v[..., :32].contiguous(), cols, ncols, block)
+    lay8 = get_sparsity_config("bigbird", num_heads=4, block=8).make_layout(512)
+    c8, n8, _, _ = bs.layout_arrays(lay8, cuda_device)
+    with pytest.raises(ValueError):  # block 8
+        bs.sparse_fwd(q, k, v, c8, n8, 8)
+    with pytest.raises(TypeError):
+        bs.sparse_fwd(q, k.float(), v, cols, ncols, block)
+    k3, v3 = (torch.cat([t, t[:, :, :1]], 2) for t in (k, v))
+    with pytest.raises(ValueError):  # 3 kv heads for 4 query heads
+        bs.sparse_fwd(q, k3, v3, cols, ncols, block)
+
+
+def test_cpu_sparse_takes_the_plain_versions():
+    layout = get_sparsity_config("bigbird", num_heads=2, block=8).make_layout(32)
+    q, k, v, do = flash_inputs("cpu", 1, 32, 2, 1, 16, seed=4)[:4]
+    before = (bs.sparse_fwd.launches, bs.sparse_bwd_dq.launches, bs.sparse_bwd_dkv.launches)
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    out = bs.block_sparse_attention_kernel(q, k, v, layout, 8)
+    out.backward(do)
+    assert q.grad is not None and q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert (bs.sparse_fwd.launches, bs.sparse_bwd_dq.launches, bs.sparse_bwd_dkv.launches) == before

@@ -21,6 +21,14 @@ noise there and Adam turns it into steps of +-lr of either sign; that leaf
 is held to its bound (|b| <= sum of the 5 lrs) in both engines instead. bf16:
 the loss of every step within 5e-3 relative (bf16 rounds at other points in
 the two frameworks; the readings were ~1e-3).
+
+Block-sparse attention (``attn_impl="sparse"``, BigBird at block 8, seq 32)
+is held to the same fp32 bounds on batches without a padding mask (the port
+runs its sparse kernels' plain versions; the JAX engine on the CPU runs its
+dense masked path) and with one (both take the dense masked path), and so is
+a Variable config whose fields arrive as lists. A
+dense-layout sparse config trains as the port's flash path does, within
+2e-5 (the JAX package's own check of its sparse path).
 """
 
 import jax
@@ -58,19 +66,34 @@ CONFIG = {
 SHIFT_INVARIANT = ("attn.wk.bias",)
 
 
-def _batches(steps=5, B=4, S=16, V=97, seed=0):
+SPARSE_CASES = {
+    "bigbird_kernels": (dict(num_kv_heads=2, attn_impl="sparse",
+                             sparse_attention={"mode": "bigbird", "block": 8}), False),
+    "bigbird_padded": (dict(num_kv_heads=2, attn_impl="sparse",
+                            sparse_attention={"mode": "bigbird", "block": 8}), True),
+    # list-valued fields, as a JSON or DeepSpeed-style sparsity config gives them
+    "variable_lists": (dict(num_kv_heads=2, attn_impl="sparse",
+                            sparse_attention={"mode": "variable", "block": 8,
+                                              "local_window_blocks": [1, 2],
+                                              "global_block_indices": [0, 2]}), False),
+}
+
+
+def _batches(steps=5, B=4, S=16, V=97, seed=0, masked=True):
     rng = np.random.default_rng(seed)
     for step in range(steps):
         mask = np.ones((B, S), np.int32)
         if step % 2:
-            mask[1, 11:] = 0
-        yield {"input_ids": rng.integers(0, V, (B, S)).astype(np.int32), "attention_mask": mask}
+            mask[1, (11 * S) // 16:] = 0
+        ids = rng.integers(0, V, (B, S)).astype(np.int32)
+        yield {"input_ids": ids, "attention_mask": mask} if masked else {"input_ids": ids}
 
 
-def _run_both(case, bf16):
+def _run_both(case, bf16, over=None, masked=True, S=16):
+    over = CASES[case] if over is None else over
     jdt, tdt = (jax.numpy.bfloat16, torch.bfloat16) if bf16 else (jax.numpy.float32, torch.float32)
-    jcfg = JaxConfig(**COMMON, **CASES[case], dtype=jdt)
-    tcfg = TransformerConfig(**COMMON, **CASES[case], dtype=tdt)
+    jcfg = JaxConfig(**COMMON, **over, dtype=jdt)
+    tcfg = TransformerConfig(**COMMON, **over, dtype=tdt)
     params = params_to_numpy(init_params(tcfg, seed=0, device="cpu", dtype=torch.float32), tcfg)
     config = dict(CONFIG, bf16={"enabled": bf16})
     mesh = build_mesh(devices=jax.devices()[:1], axis_sizes={"dp": 1})
@@ -79,7 +102,7 @@ def _run_both(case, bf16):
     teng, *_ = deepspeed_tpu_torch.initialize(model=causal_lm_spec(tcfg), config=config,
                                               model_parameters=params, device="cpu")
     metrics = []
-    for batch in _batches():
+    for batch in _batches(S=S, masked=masked):
         jm, tm = jeng.train_batch(batch), teng.train_batch(batch)
         metrics.append(({k: float(jm[k]) for k in ("loss", "grad_norm", "lr")},
                         {k: float(tm[k]) for k in ("loss", "grad_norm", "lr")}))
@@ -95,7 +118,16 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fp32_trajectory_matches_jax(case):
-    metrics, jax_params, port_params, engine = _run_both(case, bf16=False)
+    _assert_fp32_trajectory(*_run_both(case, bf16=False))
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_fp32_trajectory_matches_jax(case):
+    over, masked = SPARSE_CASES[case]
+    _assert_fp32_trajectory(*_run_both(case, bf16=False, over=over, masked=masked, S=32))
+
+
+def _assert_fp32_trajectory(metrics, jax_params, port_params, engine):
     for want, got in metrics:
         assert _rel(got["loss"], want["loss"]) <= 1e-5, (want, got)
         assert _rel(got["grad_norm"], want["grad_norm"]) <= 1e-5, (want, got)
@@ -121,6 +153,26 @@ def test_bf16_loss_matches_jax(case):
     for want, got in metrics:
         assert _rel(got["loss"], want["loss"]) <= 5e-3, (want, got)
     assert all(np.isfinite(v).all() and v.dtype == np.float32 for v in port_params.values())
+
+
+def test_dense_layout_sparse_trains_as_flash():
+    def losses(**over):
+        cfg = TransformerConfig(**COMMON, num_kv_heads=2, **over)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=causal_lm_spec(cfg), config=CONFIG,
+            model_parameters=init_params(cfg, seed=0, device="cpu", dtype=torch.float32),
+            device="cpu")
+        return [float(engine.train_batch(b)["loss"]) for b in _batches(S=32, masked=False)]
+
+    dense = losses(attn_impl="sparse", sparse_attention={"mode": "dense", "block": 8})
+    np.testing.assert_allclose(dense, losses(attn_impl="auto"), rtol=2e-5, atol=2e-6)
+
+
+def test_sparse_without_a_config_raises():
+    with pytest.raises(ValueError, match="sparse_attention"):
+        TransformerConfig(**COMMON, attn_impl="sparse")
+    with pytest.raises(ValueError, match="sparse_attention"):
+        TransformerConfig(**COMMON, attn_impl="sparse", sparse_attention=None)
 
 
 def _tiny_spec(**over):
