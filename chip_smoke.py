@@ -9,7 +9,9 @@ Phases, any failure exits non-zero:
           nvcc (sm_90a), one nvcc per source, all started together;
 2. check  each kernel against its plain PyTorch version on the card: RMSNorm and
           paged attention at the serving path's shapes, the latter also over
-          int8 and e4m3 pools; the int8 quantiser (nearest and stochastic) and
+          int8 and e4m3 pools, and its ALiBi form over bf16, fp32, int8 and
+          e4m3 pools at Bloom-7B1's decode and prefill shapes (32 kv heads:
+          G = 1) and on the GQA batches (G = 4); the int8 quantiser (nearest and stochastic) and
           dequantiser at a Llama-3-8B w_up layer slice, at 2048 * 37 + 123 and
           with an all-zero block, which must equal their plain versions bit for
           bit; the three flash-attention kernels (forward, dq, dkv) at the
@@ -42,6 +44,13 @@ Phases, any failure exits non-zero:
           the public ``quantize_int8(..., stochastic=True)`` at the w_up shape
           (the stochastic kernel's only entry point). The weights are freed
           after;
+   bloom  Bloom-7B1 at full width and depth (``BLOOM_7B1``: random bf16
+          weights from seed 0, every bias and LayerNorm parameter redrawn
+          from seed 1) through ``InferenceEngineV2.generate`` with the same
+          prompts, settings and pool budget, over a bf16 pool, an int8 pool
+          with int8 WOQ and an e4m3 pool: 30 ALiBi launches of the paged
+          kernel per forward, the plain version never called, prefill logits
+          held to the plain versions, a decode chain profiled for each;
 4. train  Llama-3.2-1B (the ``llama3-1b`` preset) at full width and depth
           through ``initialize`` / ``train_batch``, with the JAX package's
           headline training config (bench.py) less its ``hbm_guard``,
@@ -71,7 +80,7 @@ Phases, any failure exits non-zero:
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (none for the
           quantisers; for the sparse kernels SDPA with the layout expanded to
-          a token mask).
+          a token mask; for the ALiBi form SDPA with the bias as a float mask).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -84,6 +93,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -103,7 +113,7 @@ from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_f
 from deepspeed_tpu_torch.inference.paged import _kv_block_quant
 from deepspeed_tpu_torch.inference.ragged import StateManager, build_ragged_batch
 from deepspeed_tpu_torch.models import PRESETS, CausalLM, TransformerConfig, causal_lm_spec, init_params
-from deepspeed_tpu_torch.models.transformer import flatten, sparse_layout
+from deepspeed_tpu_torch.models.transformer import alibi_slopes, flatten, sparse_layout
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import norms as norms_mod
@@ -121,6 +131,9 @@ from deepspeed_tpu_torch.utils.checks import (
     flash_inputs,
     row_rel_l2,
 )
+
+# the module (``deepspeed_tpu_torch.ops`` re-exports its function of the same name)
+pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of bytes / memory rate and operations / peak rate for the type.
@@ -233,21 +246,24 @@ def card_line() -> str:
 
 
 def counted() -> dict:
-    """Every kernel wrapper by name; each counts its own launches."""
-    return {"rms_norm": rms_norm, "paged_attention": paged_attention,
-            "paged_attention_quant": paged_attention_quant,
-            **{name: getattr(quant_mod, name) for name in QUANT_KERNELS},
-            **{name: getattr(fa, name) for name in FLASH_KERNELS},
-            **{name: getattr(bs, name) for name in SPARSE_KERNELS}}
+    """Every kernel's launch counter by name: (wrapper, attribute). The
+    paged-attention wrappers count their ALiBi launches, over any pool, in
+    ``paged_attention.alibi_launches``."""
+    return {"rms_norm": (rms_norm, "launches"), "paged_attention": (paged_attention, "launches"),
+            "paged_attention_quant": (paged_attention_quant, "launches"),
+            "paged_attention_alibi": (paged_attention, "alibi_launches"),
+            **{name: (getattr(quant_mod, name), "launches") for name in QUANT_KERNELS},
+            **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS},
+            **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS}}
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in counted().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counted().items()}
 
 
 def zero_counts() -> None:
-    for fn in counted().values():
-        fn.launches = 0
+    for fn, attr in counted().values():
+        setattr(fn, attr, 0)
 
 
 def compare_rms(got, want, dtype):
@@ -386,8 +402,9 @@ def dense_sdpa_operands(batch, lens):
 def paged_bytes_and_flops(batch, lens):
     """Bytes the function must move (inputs read once, output written once,
     only the live pages of the pool: hd values, plus a 4-byte scale for a
-    quantised pool, per token and kv head) and its flops, for this batch's
-    data."""
+    quantised pool, per token and kv head; the fp32 slopes with ALiBi) and
+    its flops (with ALiBi 2 more per visible score: slope times distance,
+    added), for this batch's data."""
     q = batch["q"]
     N, C, H, hd = q.shape
     kvH, it = batch["pool_k_l"].shape[1], q.element_size()
@@ -400,7 +417,21 @@ def paged_bytes_and_flops(batch, lens):
     nl = batch["new_lens"].cpu().numpy()
     visible = sum(int(pos[n, c]) + 1 for n in range(N) for c in range(int(nl[n])))
     flops = 4 * visible * H * hd
+    if batch.get("alibi_slopes") is not None:
+        other += 4 * H
+        flops += 2 * visible * H
     return kv + other, flops
+
+
+def alibi_sdpa_mask(batch, mask):
+    """The library yardstick's float mask ``[N, H, C, T]`` in q's dtype: the
+    ALiBi bias slope[h] * (t - p) where the boolean causal ``mask`` keeps a
+    key, -inf elsewhere."""
+    pos = batch["q_positions"].long()
+    T = mask.shape[-1]
+    rel = (torch.arange(T, device=pos.device)[None, None, :] - pos[:, :, None]).float()
+    bias = batch["alibi_slopes"][None, :, None, None] * rel[:, None]
+    return torch.where(mask, bias, float("-inf")).to(batch["q"].dtype)
 
 
 def run_flash_kernels(qs, k, v, do, keep):
@@ -553,6 +584,39 @@ def log_profile(tag, what, wall_ms, busy_ms, plain_wall_ms, rows):
             "top": [list(r) for r in rows[:20]]}
 
 
+def check_paged_alibi(dev, rng, checks, max_err):
+    """The ALiBi form against its plain version over a pool of q's dtype and
+    over int8 and e4m3 pools, each with bf16 and fp32 q: on Bloom-7B1's
+    decode and prefill batches (32 query and 32 kv heads: G = 1), added to
+    ``checks`` for the timing phase, and on the GQA batches (G = 4)."""
+    checks["bloom decode C=1, lens 1-1000"] = paged_batch(
+        dev, rng, lens=[1, 17, 100, 250, 511, 512, 777, 1000], new_lens=[1] * 8, kvH=32)
+    checks["bloom prefill C=512, ragged, pad row"] = paged_batch(
+        dev, rng, lens=[512, 500, 1, 977, 64], new_lens=[512, 300, 0, 77, 64], kvH=32)
+    failures = []
+    for label, (batch, lens) in checks.items():
+        slopes = alibi_slopes(batch["q"].shape[2], dev)
+        for kv in (None, *KV_CODE_DTYPES):
+            pools = batch if kv is None else quantised_batch(batch, kv)
+            for dtype in (torch.bfloat16, torch.float32):
+                b = dict(pools, q=batch["q"].to(dtype), alibi_slopes=slopes)
+                if kv is None:
+                    b.update(pool_k_l=batch["pool_k_l"].to(dtype), pool_v_l=batch["pool_v_l"].to(dtype))
+                got = paged_attention(**b)
+                torch.cuda.synchronize()
+                ok, mabs, mrel = compare_paged(got, paged_attention_reference(**b), dtype)
+                if dtype == torch.bfloat16:
+                    max_err["paged_attention_alibi"] = max(max_err["paged_attention_alibi"], mabs)
+                rtol, atol, rel_l2 = PAGED_TOL[dtype]
+                G = batch["q"].shape[2] // batch["pool_k_l"].shape[1]
+                log(f"[check] paged_attention alibi {label} (G = {G}) {kv or str(dtype)[6:]} pool, "
+                    f"{str(dtype)[6:]} q: max_abs {mabs:.3e} max per-query rel L2 {mrel:.3e} tol "
+                    f"rtol={rtol} atol={atol} rel_l2={rel_l2} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"paged_attention alibi {label} {kv} {dtype}")
+    return failures
+
+
 # ------------------------------------------------------------------ phases
 def phase_checks(dev, max_err):
     """Phase 2: each kernel against its plain version. Returns (failures,
@@ -612,6 +676,7 @@ def phase_checks(dev, max_err):
                     f"rel_l2={rel_l2} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"paged_attention_quant {label} {kv} {dtype}")
+    failures += check_paged_alibi(dev, rng, checks, max_err)
     for label, shape in FLASH_SETS.items():
         for dtype in (torch.bfloat16, torch.float32):
             ok, readings, lse_err = check_flash(dev, shape, dtype)
@@ -718,6 +783,31 @@ def check_prefill_logits(tag, dev, cfg, params, prompts, results, kv_quant=None)
     return logits["kernels"]
 
 
+def profile_chain(tag, engine, prompts):
+    """One decode chain (8 rows x 8 steps, after a prefill of ``prompts``)
+    under the profiler, after the counted run: (``log_profile``'s record,
+    the device time by kernel), or None when the profiler saw no device
+    time."""
+    uids = list(range(len(prompts)))
+    engine.put(uids, prompts)
+    prof = device_profile(lambda: engine.decode_chain(uids, [0] * len(uids), [8] * len(uids), 8))
+    for u in uids:
+        engine.flush(u)
+    if prof[1] <= 0:
+        log(f"[{tag}] FAILED: the profiler saw no device time in the decode chain")
+        return None
+    return log_profile(tag, "decode chain (8 rows x 8 steps)", *prof), prof[3]
+
+
+def woq_reads(engine):
+    """(quantised leaves, dequantiser launches a forward) of an engine's
+    weights: a stacked leaf is read once per layer. Ints only, so the
+    engine's codes die with it."""
+    reads = [x.shape[0] if x.stacked else 1 for _, x in woq_mod._leaves(engine.params)
+             if isinstance(x, woq_mod.WOQTensor)]
+    return len(reads), sum(reads)
+
+
 def phase_serve(dev, cfg, params, results):
     """Phase 3: Llama-3-8B through InferenceEngineV2.generate. Returns the
     launch counts of the counted run, the outputs and the prefill-step logits
@@ -766,16 +856,10 @@ def phase_serve(dev, cfg, params, results):
         return None
 
     # where a decode chain's time goes (after the counted run)
-    uids = list(range(len(prompts)))
-    engine.put(uids, prompts)
-    prof = device_profile(lambda: engine.decode_chain(uids, [0] * len(uids), [8] * len(uids), 8))
-    for u in uids:
-        engine.flush(u)
-    if prof[1] <= 0:
-        log("[profile] FAILED: the profiler saw no device time in the decode chain")
+    prof = profile_chain("profile", engine, prompts)
+    if prof is None:
         return None
-    results["profile_decode_chain"] = log_profile("profile", "decode chain (8 rows x 8 steps)",
-                                                  *prof)
+    results["profile_decode_chain"] = prof[0]
     return launches, outs, logits
 
 
@@ -803,16 +887,12 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
         launches = launch_counts()
         forwards = engine.model_forwards
         woq = engine.config.quant.enabled
-        # dequantiser launches a forward of each quantised leaf (layers of a
-        # stack each read once); ints only, so the engine's codes die with it
-        reads = [x.shape[0] if x.stacked else 1 for _, x in woq_mod._leaves(engine.params)
-                 if isinstance(x, woq_mod.WOQTensor)]
-        per_forward = sum(reads)
+        n_leaves, per_forward = woq_reads(engine)
         expect = dict({k: 0 for k in launches}, rms_norm=(2 * cfg.num_layers + 1) * forwards,
                       paged_attention_quant=cfg.num_layers * forwards,
                       dequantize_int8=per_forward * forwards, quantize_int8=per_forward)
         weight_bytes = woq_mod.woq_bytes(engine.params)
-        log(f"[{tag}] init {init_s:.2f} s ({len(reads)} quantised leaves); {forwards} forwards, "
+        log(f"[{tag}] init {init_s:.2f} s ({n_leaves} quantised leaves); {forwards} forwards, "
             f"launches {launches} (expected {expect}, {per_forward} dequantiser launches "
             f"per forward)")
         if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
@@ -854,20 +934,15 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
         log(f"[{tag}] prefill-step logits against the bf16 engine's: rel L2 {drift:.3e}, argmax "
             f"agreement {top:.2f} (random weights: printed, not held)")
         if woq:
-            uids = list(range(len(prompts)))
-            engine.put(uids, prompts)
-            prof = device_profile(
-                lambda: engine.decode_chain(uids, [0] * len(uids), [8] * len(uids), 8))
-            for u in uids:
-                engine.flush(u)
-            if prof[1] <= 0:
-                log(f"[{tag}] FAILED: the profiler saw no device time in the decode chain")
+            prof = profile_chain(tag, engine, prompts)
+            if prof is None:
                 return None
-            r["profile_decode_chain"] = log_profile(tag, "decode chain (8 rows x 8 steps)", *prof)
-            dequant_ms = sum(ms for ms, _, name in prof[3] if "dequant_kernel" in name)
-            r["dequant_share_of_device_time"] = dequant_ms / prof[1]
-            log(f"[{tag}] dequantiser: {dequant_ms:.2f} ms of {prof[1]:.2f} ms device time "
-                f"({100 * dequant_ms / prof[1]:.1f} %) in the decode chain")
+            r["profile_decode_chain"], rows = prof
+            busy = prof[0]["device_busy_ms"]
+            dequant_ms = sum(ms for ms, _, name in rows if "dequant_kernel" in name)
+            r["dequant_share_of_device_time"] = dequant_ms / busy
+            log(f"[{tag}] dequantiser: {dequant_ms:.2f} ms of {busy:.2f} ms device time "
+                f"({100 * dequant_ms / busy:.1f} %) in the decode chain")
         by_path[tag] = launches
         del engine
         gc.collect()  # the timing wrappers hold the engine in a reference cycle
@@ -885,6 +960,137 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
     if launches != dict({k: 0 for k in launches}, quantize_int8_stochastic=1):
         log("[quant] FAILED: the stochastic quantiser was not launched once")
         return None
+    return by_path
+
+
+# bigscience/bloom-7b1's public config (vocab_size 250880, hidden_size 4096,
+# n_layer 30, n_head 32, layer_norm_epsilon 1e-5), mapped as
+# deepspeed_tpu/checkpoint/hf.py:231-248 maps model_type "bloom": FFN 4 x
+# hidden, LayerNorm, tanh GELU, ALiBi, q/k/v/dense/MLP biases, embedding
+# LayerNorm, tied head, kv heads = heads; max_seq_len hf.py's default 2048
+BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=4 * 4096, num_layers=30,
+                 num_heads=32, max_seq_len=2048, norm="layernorm", activation="gelu",
+                 position="alibi", norm_eps=1e-5, qkv_bias=True, dense_bias=True,
+                 embed_norm=True, tie_embeddings=True)
+# (tag, engine settings beside SERVE_CONFIG) of the Bloom serving phase
+BLOOM_ENGINES = {
+    "bloom-7b1 bf16": {},
+    "bloom-7b1 int8 kv + woq int8": QUANT_ENGINES["quant int8 kv + woq int8"],
+    "bloom-7b1 fp8 kv": QUANT_ENGINES["quant fp8 kv"],
+}
+
+
+def bloom_params(cfg, dev):
+    """Random bf16 weights from seed 0, then every bias, LayerNorm scale and
+    LayerNorm bias redrawn from seed 1 (scales 1 + 0.1 n, biases 0.1 n):
+    init makes them 1 and 0, which would hide a bias or a norm parameter the
+    forward dropped."""
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for path, t in flatten(params).items():
+        if path.endswith(".bias"):
+            t.normal_(0.0, 0.1, generator=gen)
+        elif path.endswith(".scale"):
+            t.normal_(1.0, 0.1, generator=gen)
+    return params
+
+
+def phase_bloom_serve(dev, results):
+    """Phase 3c: Bloom-7B1 at full width and depth through
+    InferenceEngineV2.generate, over a bf16 pool, an int8 pool with int8 WOQ
+    and an e4m3 pool, each engine built with the counters zeroed just before
+    and read just after (WOQ's quantiser launches), warmed up, then run with
+    the counters zeroed just before and read just after: 30 ALiBi launches of
+    the paged kernel per forward, the plain version never called. Returns
+    {tag: launch counts} of the counted runs, or None on failure."""
+    cfg = TransformerConfig(**BLOOM_7B1, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = bloom_params(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[bloom] init bloom-7b1: {cfg.num_params() / 1e9:.3f} B params (JAX count), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in {time.perf_counter() - t0:.1f} s")
+    plens, prompts = serve_prompts(cfg)
+    by_path, bf16 = {}, None
+    for tag, over in BLOOM_ENGINES.items():
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = InferenceEngineV2(cfg, params, dict(SERVE_CONFIG, **over), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_launches = launch_counts()
+        engine.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS and allocator first calls
+        engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
+        engine.chain_steps = engine.model_forwards = 0
+        plain_calls = []
+        real_plain = pa_mod.paged_attention_reference
+
+        def spy(*a, **k):
+            plain_calls.append(1)
+            return real_plain(*a, **k)
+
+        zero_counts()
+        with mock.patch.object(pa_mod, "paged_attention_reference", spy):
+            outs, wall, spans, peak_gb = timed_generate(engine, prompts)
+        launches = launch_counts()
+        forwards = engine.model_forwards
+        n_leaves, per_forward = woq_reads(engine)
+        expect = dict({k: 0 for k in launches}, paged_attention_alibi=cfg.num_layers * forwards,
+                      dequantize_int8=per_forward * forwards)
+        expect_init = dict({k: 0 for k in launches}, quantize_int8=per_forward)
+        weight_bytes = woq_mod.woq_bytes(engine.params)
+        log(f"[{tag}] init {init_s:.2f} s ({n_leaves} quantised leaves, launches {init_launches}, "
+            f"expected {expect_init}); prompts {plens}; {forwards} forwards, "
+            f"{engine.dispatch_count} dispatches, launches {launches} (expected {expect}); plain "
+            f"paged attention called {len(plain_calls)} times")
+        if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
+            log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
+            return None
+        if launches != expect or init_launches != expect_init or plain_calls or forwards == 0:
+            log(f"[{tag}] FAILED: kernel launch counts do not match the forwards run")
+            return None
+        prefill_tokens = sum(plens)
+        r = results[tag] = {
+            "kv_cache_dtype": engine.config.kv_dtype_name, "woq": engine.config.quant.enabled,
+            "init_s": init_s, "prompt_lens": plens, "forwards": forwards, "launches": launches,
+            "init_launches": init_launches, "wall_s": wall, "prefill_s": spans["prefill"],
+            "decode_s": spans["decode"], "prefill_tok_s": prefill_tokens / spans["prefill"],
+            "decode_tok_s": engine.tokens_decoded / spans["decode"],
+            "tokens_decoded": engine.tokens_decoded, "peak_mem_gb": peak_gb,
+            "weight_bytes": weight_bytes, "kv_bytes_per_token": engine.kv_bytes_per_token,
+            "kv_blocks": engine.num_kv_blocks, "first_tokens": [o[:8].tolist() for o in outs[:2]],
+        }
+        log(f"[{tag}] generate {wall:.2f} s: prefill {prefill_tokens} tokens in "
+            f"{spans['prefill']:.3f} s ({r['prefill_tok_s']:.1f} tok/s), decode "
+            f"{engine.tokens_decoded} tokens in {spans['decode']:.3f} s ({r['decode_tok_s']:.1f} "
+            f"tok/s), peak memory {peak_gb:.2f} GB; weights {weight_bytes / 1e9:.3f} GB; KV "
+            f"{engine.kv_bytes_per_token} B/token, {engine.num_kv_blocks} blocks of 16")
+        logits = check_prefill_logits(tag, dev, cfg, engine.params, prompts, r,
+                                      kv_quant=engine.config.kv_quant)
+        if logits is None:
+            return None
+        if bf16 is None:
+            bf16 = outs, logits
+        else:
+            agree = float(np.mean(np.concatenate([a == b for a, b in zip(outs, bf16[0])])))
+            drift = float((logits - bf16[1]).norm() / bf16[1].norm())
+            r["greedy_agreement_with_bf16"], r["drift_vs_bf16_rel_l2"] = agree, drift
+            log(f"[{tag}] against the bf16 engine: greedy tokens equal {100 * agree:.1f} %, "
+                f"prefill-step logits rel L2 {drift:.3e} (random weights: printed, not held)")
+        prof = profile_chain(tag, engine, prompts)
+        if prof is None:
+            return None
+        r["profile_decode_chain"], rows = prof
+        paged_ms = sum(ms for ms, _, name in rows if "paged_attention_kernel" in name)
+        r["paged_attention_share_of_device_time"] = paged_ms / prof[0]["device_busy_ms"]
+        by_path[tag] = {k: launches[k] + init_launches[k] for k in launches}
+        del engine, logits
+        gc.collect()  # the timing wrappers hold the engine in a reference cycle
+        torch.cuda.empty_cache()
+    del params, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -1124,6 +1330,44 @@ def time_sparse(dev, launches, max_err, timing):
     return kernels
 
 
+def time_paged_alibi(dev, checks, launches, max_err, timing, flush):
+    """The ALiBi form at Bloom-7B1's shapes (G = 1): a bf16 pool at decode and
+    prefill, int8 and e4m3 pools at decode, beside the bound, the plain
+    version and SDPA on K/V gathered (and dequantised) beforehand with the
+    bias as a float mask. Returns the kernel line's entry (bf16 decode)."""
+    slopes = alibi_slopes(32, dev)
+    for label, key, kv in (("decode", "bloom decode C=1, lens 1-1000", None),
+                           ("prefill", "bloom prefill C=512, ragged, pad row", None),
+                           ("decode", "bloom decode C=1, lens 1-1000", "int8"),
+                           ("decode", "bloom decode C=1, lens 1-1000", "fp8")):
+        batch, lens = checks[key]
+        ab = dict(batch if kv is None else quantised_batch(batch, kv), alibi_slopes=slopes)
+        nbytes, flops = paged_bytes_and_flops(ab, lens)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        kd, vd, qd, mask = dense_sdpa_operands(ab, lens)
+        fmask = alibi_sdpa_mask(ab, mask)
+        t = {"ms": time_fn(lambda: paged_attention(**ab), iters=50, flush=flush),
+             "plain_ms": time_fn(lambda: paged_attention_reference(**ab), iters=20, flush=flush),
+             "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=fmask),
+                                   iters=50, flush=flush),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        pool = kv or "bf16"
+        timing[f"paged_attention_alibi[{pool},{label}]"] = t
+        log(f"[time] paged_attention alibi {label} {pool} pool, q {tuple(ab['q'].shape)} bf16, 32 kv "
+            f"heads: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA(dense, float ALiBi "
+            f"mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        del kd, vd, qd, mask, fmask
+    d = timing["paged_attention_alibi[bf16,decode]"]
+    return dict(name="paged_attention_alibi", route="cuda",
+                source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+                replaces="deepspeed_tpu/ops/pallas/paged_attention.py:124",
+                launches=launches["paged_attention_alibi"],
+                max_abs_err=max_err["paged_attention_alibi"],
+                shape="Bloom-7B1 decode q [8, 1, 32, 128], 32 kv heads, bf16 pool, lens 1-1000",
+                **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+
 def phase_time(dev, checks, launches, max_err, results):
     """Phase 7: per-kernel device times at the main path's shapes."""
     l2_flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
@@ -1208,6 +1452,8 @@ def phase_time(dev, checks, launches, max_err, results):
                         max_abs_err=max_err["paged_attention_quant"],
                         shape="decode q [8, 1, 32, 128] bf16, int8 pool, lens 1-1000",
                         **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+
+    kernels.append(time_paged_alibi(dev, checks, launches, max_err, timing, flush))
 
     # the quantisers at a w_up layer slice, bf16 (what WOQ quantises and reads)
     x = torch.randn(W_UP_SLICE, device=dev, dtype=torch.bfloat16) * 0.02
@@ -1321,7 +1567,7 @@ def main(argv=None) -> int:
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
-               **{k: 0.0 for k in FLASH_KERNELS + SPARSE_KERNELS}}
+               "paged_attention_alibi": 0.0, **{k: 0.0 for k in FLASH_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -1360,6 +1606,15 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 3c. serving Bloom-7B1 through the ALiBi form, on the memory the
+    # Llama weights, engines and pools held
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[bloom] before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the Llama engines were freed")
+    bloom_launches = phase_bloom_serve(dev, results)
+    if bloom_launches is None:
+        return 1
 
     # ---- 4. training Llama-3.2-1B
     llama = dataclasses.replace(PRESETS["llama3-1b"], dtype=torch.bfloat16)
@@ -1414,9 +1669,10 @@ def main(argv=None) -> int:
         return 1
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
-    # over the counted runs of the paths (serving bf16 and quantised, the
-    # stochastic quantiser's call, the three trainings)
-    by_path = {"serve": serve_launches, **quant_launches, "train llama3-1b": llama_launches,
+    # over the counted runs of the paths (serving Llama bf16 and quantised,
+    # the stochastic quantiser's call, serving Bloom, the three trainings)
+    by_path = {"serve": serve_launches, **quant_launches, **bloom_launches,
+               "train llama3-1b": llama_launches,
                "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path

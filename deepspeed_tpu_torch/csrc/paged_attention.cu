@@ -2,10 +2,11 @@
 // (sm_90a).
 //
 // Replaces: deepspeed_tpu/ops/pallas/paged_attention.py:_decode_kernel
-// (pallas_call in flash_decode_paged) without ALiBi: the bf16/fp32 pool
-// (ds_paged_attention) and the quantised int8/e4m3 pool with one fp32 scale
+// (pallas_call in flash_decode_paged), in each of its forms: the bf16/fp32
+// pool (ds_paged_attention), the quantised int8/e4m3 pool with one fp32 scale
 // per (slot, kv head) (ds_paged_attention_quant, the kernel's quantized=True
-// form). It computes what that kernel computes: the new
+// form), and either of them with ALiBi (alibi=True, a non-null slopes
+// pointer). It computes what that kernel computes: the new
 // queries q [N, C, H, hd] of each row attend to the row's pages of one
 // layer's pool [S_flat, kvH, hd] through block_tables [N, P]; query head h
 // reads kv head h / G; key j is visible to a query at position p iff j <= p;
@@ -14,6 +15,19 @@
 // pool is dequantised right after each page is loaded: float(code) * its
 // slot's scale, rounded to q's dtype (JAX's .astype(q_ref.dtype)), so the
 // full-precision pool never exists anywhere.
+//
+// ALiBi (Bloom): query head h's scores get slope[h] times the key's
+// position, added before the causal mask and the running max (which must
+// see it: at position 1000 head 0's slope 2^-0.25 moves a score by ~840).
+// The kernel adds slope[h] * (j - p), p the query's position: the same
+// softmax as the JAX kernel's slope[h] * j, since slope[h] * p is one
+// constant per query row, but exact where the weight is. slope * j reaches
+// 1,720 at position 2047, where one fp32 ulp is 1.2e-4, six times the fp32
+// check's tolerance on an output element; slope * (j - p) is small for the
+// keys near the query that carry the softmax's weight. The product and the sum
+// are rounded separately (__fmul_rn, __fadd_rn), as the plain version's two
+// tensor ops round them. The slopes of a block's query rows are loaded into
+// shared memory once; a template flag keeps the form without ALiBi as it was.
 //
 // What bounds it on an H100: at decode (C = 1) bytes. Every live KV page is
 // read once (hd * 2 values * itemsize per token and kv head) for 4 * G * hd
@@ -28,8 +42,10 @@
 //   grid  = (query tile, kv head, row n); 256 threads per block.
 //   tile  = up to TQ (c, g) query rows of the row's GQA group, TQ = 64, or
 //           16 where C * G <= 16: for decode that is the G = 4 heads of one
-//           kv head; a 512-token prefill chunk is 2048 rows, cut into 32
-//           tiles (the TPU kept them all in VMEM).
+//           kv head (Llama) or the one head of a kv head (G = 1, Bloom's
+//           MHA: one live row of the 16); a 512-token prefill chunk is
+//           512 * G rows, cut into 8 * G tiles (the TPU kept them all in
+//           VMEM).
 //   Each block reads its row's block-table entries itself (no scalar
 //   prefetch) and streams exactly the live pages, up to the largest position
 //   in its tile and never past the row's live length ceil((max_pos+1)/bs)
@@ -126,19 +142,21 @@ struct Smem {
   static constexpr int kL = kM + kTileQ;
   static constexpr int kAlpha = kL + kTileQ;
   static constexpr int kPos = kAlpha + kTileQ;  // int
-  static constexpr int kMisc = kPos + kTileQ;   // int: pages
+  static constexpr int kSlope = kPos + kTileQ;  // ALiBi slope of each row
+  static constexpr int kMisc = kSlope + kTileQ;  // int: pages
   static constexpr int kFloats = kMisc + 4;
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
 // T: q and output type (fp32 | bf16). KV: pool type, T itself or a
 // quantised int8_t / __nv_fp8_e4m3 with k_scale / v_scale [S_flat, kvH] fp32
-// (nullptr when KV == T).
-template <typename T, typename KV, int HD, int kTileQ>
+// (nullptr when KV == T). kAlibi: slopes [H] fp32 (nullptr without).
+template <typename T, typename KV, int HD, int kTileQ, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
                        const KV* __restrict__ v_pool, const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale, const int* __restrict__ block_tables,
+                       const float* __restrict__ v_scale, const float* __restrict__ slopes,
+                       const int* __restrict__ block_tables,
                        const int* __restrict__ q_positions, const int* __restrict__ new_lens,
                        T* __restrict__ out, int C, int H, int kvH, int P, int bs,
                        float q_scale) {
@@ -153,6 +171,7 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
   float* l_s = smem + L::kL;
   float* alpha_s = smem + L::kAlpha;
   int* pos_s = reinterpret_cast<int*>(smem + L::kPos);
+  float* slope_s = smem + L::kSlope;
   int* misc_s = reinterpret_cast<int*>(smem + L::kMisc);
 
   constexpr int kVec = 16 / sizeof(T);   // q elements per 16-byte load
@@ -182,6 +201,8 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
     pos_s[r] = r < n_rows ? q_positions[static_cast<int64_t>(n) * C + (row0 + r) / G] : -1;
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
+    // row (c, g) of kv head kh is query head kh * G + g
+    if constexpr (kAlibi) slope_s[r] = r < n_rows ? slopes[kh * G + (row0 + r) % G] : 0.f;
   }
   __syncthreads();
 
@@ -292,7 +313,10 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
         const int r = sg + kSG * i;
         if (r < n_rows) {
           const bool visible = t < n_tok && t <= pos_s[r];
-          s_s[r * kTileK + j] = visible ? s[i] : -INFINITY;
+          float sc = s[i];
+          if constexpr (kAlibi)
+            sc = __fadd_rn(sc, __fmul_rn(slope_s[r], static_cast<float>(t - pos_s[r])));
+          s_s[r * kTileK + j] = visible ? sc : -INFINITY;
         }
       }
     }
@@ -367,40 +391,47 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
 }
 
 struct Args {
-  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *block_tables, *q_positions, *new_lens;
+  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *slopes, *block_tables, *q_positions,
+      *new_lens;
   void* out;
   int N, C, H, kvH, P, bs;
   float q_scale;
   cudaStream_t stream;
 };
 
-template <typename T, typename KV, int HD, int kTileQ>
+template <typename T, typename KV, int HD, int kTileQ, bool kAlibi>
 int launch_tile(const Args& a) {
   constexpr size_t kBytes = Smem<HD, kTileQ>::kBytes;
   static bool configured = false;  // once per instantiation and process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, KV, HD, kTileQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kBytes));
+        paged_attention_kernel<T, KV, HD, kTileQ, kAlibi>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const int G = a.H / a.kvH;
   const int tiles = (a.C * G + kTileQ - 1) / kTileQ;
   const dim3 grid(tiles, a.kvH, a.N);
-  paged_attention_kernel<T, KV, HD, kTileQ><<<grid, kThreads, kBytes, a.stream>>>(
+  paged_attention_kernel<T, KV, HD, kTileQ, kAlibi><<<grid, kThreads, kBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k_pool),
       static_cast<const KV*>(a.v_pool), static_cast<const float*>(a.k_scale),
-      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.block_tables),
+      static_cast<const float*>(a.v_scale), static_cast<const float*>(a.slopes),
+      static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.q_positions), static_cast<const int*>(a.new_lens),
       static_cast<T*>(a.out), a.C, a.H, a.kvH, a.P, a.bs, a.q_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename KV, int HD, bool kAlibi>
+int launch_alibi(const Args& a) {
+  if (a.C * (a.H / a.kvH) <= kTileQSmall) return launch_tile<T, KV, HD, kTileQSmall, kAlibi>(a);
+  return launch_tile<T, KV, HD, kTileQLarge, kAlibi>(a);
+}
+
 template <typename T, typename KV, int HD>
 int launch(const Args& a) {
-  if (a.C * (a.H / a.kvH) <= kTileQSmall) return launch_tile<T, KV, HD, kTileQSmall>(a);
-  return launch_tile<T, KV, HD, kTileQLarge>(a);
+  return a.slopes != nullptr ? launch_alibi<T, KV, HD, true>(a) : launch_alibi<T, KV, HD, false>(a);
 }
 
 // kv: 0 = the pool is of q's type, 1 = int8 codes, 2 = e4m3 codes
@@ -428,28 +459,29 @@ int dispatch(const Args& a, int hd, int dtype, int kv) {
 }  // namespace
 
 // dtype codes: 0 = fp32, 1 = bf16; hd must be 64 or 128; new_lens [N] int32
-// (0 for a pad row). Returns cudaGetLastError() after the launch.
+// (0 for a pad row); slopes: ALiBi slopes [H] fp32, or NULL for none.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ds_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                                  const void* block_tables, const void* q_positions,
-                                  const void* new_lens, void* out, int N, int C, int H, int kvH,
-                                  int hd, int P, int bs, float q_scale, int dtype,
-                                  void* stream) {
-  const Args a{q, k_pool, v_pool, nullptr, nullptr, block_tables, q_positions, new_lens, out,
-               N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
+                                  const void* slopes, const void* block_tables,
+                                  const void* q_positions, const void* new_lens, void* out, int N,
+                                  int C, int H, int kvH, int hd, int P, int bs, float q_scale,
+                                  int dtype, void* stream) {
+  const Args a{q, k_pool, v_pool, nullptr, nullptr, slopes, block_tables, q_positions, new_lens,
+               out, N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
   return dispatch(a, hd, dtype, 0);
 }
 
 // The quantised pool: k_pool / v_pool [S_flat, kvH, hd] of int8 (kv = 1) or
 // e4m3 (kv = 2) codes, k_scale / v_scale [S_flat, kvH] fp32; q and out of
-// dtype. Returns cudaGetLastError() after the launch.
+// dtype; slopes as above. Returns cudaGetLastError() after the launch.
 extern "C" int ds_paged_attention_quant(const void* q, const void* k_pool, const void* v_pool,
                                         const void* k_scale, const void* v_scale,
-                                        const void* block_tables, const void* q_positions,
-                                        const void* new_lens, void* out, int N, int C, int H,
-                                        int kvH, int hd, int P, int bs, float q_scale,
-                                        int dtype, int kv, void* stream) {
+                                        const void* slopes, const void* block_tables,
+                                        const void* q_positions, const void* new_lens, void* out,
+                                        int N, int C, int H, int kvH, int hd, int P, int bs,
+                                        float q_scale, int dtype, int kv, void* stream) {
   if (kv != 1 && kv != 2) return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, k_scale, v_scale, block_tables, q_positions, new_lens, out,
-               N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, slopes, block_tables, q_positions, new_lens,
+               out, N, C, H, kvH, P, bs, q_scale, static_cast<cudaStream_t>(stream)};
   return dispatch(a, hd, dtype, kv);
 }

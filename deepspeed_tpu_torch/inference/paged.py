@@ -13,7 +13,10 @@ processes a mixed prefill/decode ragged batch:
     ``PagedKVPool`` is returned.
   - paged attention: ``ops.paged_attention`` (the hand-written CUDA kernel on
     the card, the plain gather-then-attend version on the CPU), called after
-    the KV write, so a prefill chunk attends to itself.
+    the KV write, so a prefill chunk attends to itself. The Bloom form
+    (``position="alibi"``) passes its slopes, made once per head count and
+    device, and takes no RoPE; ``embed_norm`` normalises the gathered
+    embeddings first.
 
 A quantised pool (``kv_quant`` 'int8' | 'fp8') holds 1-byte codes and one
 fp32 scale per (layer, slot, kv head): the quantisation block is the ``hd``
@@ -38,6 +41,7 @@ from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.models.transformer import (
     TransformerConfig,
     _apply_norm,
+    alibi_slopes,
     apply_qk_rope,
     layer_slice,
 )
@@ -126,13 +130,17 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
     flat_slot = _slot_ids(block_tables, positions, valid, block_size, trash).reshape(-1)
 
     x = params["embed"]["embedding"][tokens.long()].to(cfg.dtype)
+    if cfg.embed_norm:
+        x = _apply_norm(params["embed_norm"], cfg, x)
+    slopes = alibi_slopes(cfg.num_heads, x.device) if cfg.position == "alibi" else None
     layers = params["layers"]
     quant = pool.quant
     for i in range(cfg.num_layers):
         lp = layer_slice(layers, i)
         h = _apply_norm(lp["attn_norm"], cfg, x)
         q, k, v = _qkv(lp["attn"], cfg, h)
-        q, k = apply_qk_rope(cfg, q, k, positions)
+        if cfg.position == "rope":
+            q, k = apply_qk_rope(cfg, q, k, positions)
         pk, pv = pool.k[i], pool.v[i]
         kvH, hd = k.shape[-2], k.shape[-1]
         if quant is None:
@@ -148,7 +156,7 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
                 codes.view(torch.uint8).index_copy_(0, flat_slot, xq.view(torch.uint8))
                 scales.index_copy_(0, flat_slot, xs)
         ctx = paged_attention(q, pk, pv, block_tables, positions, block_size, new_lens=new_lens,
-                              k_scale=psk, v_scale=psv)
+                              k_scale=psk, v_scale=psv, alibi_slopes=slopes)
         x = x + _attn_out(lp["attn"], cfg, ctx)
         h = _apply_norm(lp["mlp_norm"], cfg, x)
         x = x + _mlp(lp["mlp"], cfg, h)

@@ -1,14 +1,17 @@
 """Decoder-only transformer: config, presets, parameters and the training
 forward (counterpart of ``deepspeed_tpu/models/transformer.py``).
 
-One config covers the two dense families the port trains: Llama-style
-(RMSNorm, half-split RoPE, SiLU-GLU MLP, GQA, untied head, no biases) and
-GPT-2-style (LayerNorm, learned positions, GELU MLP, tied embeddings,
-biases), with flash or block-sparse attention (``attn_impl="sparse"``).
-``TransformerConfig`` keeps the JAX package's field names and defaults; a
-setting outside those families (ALiBi, MoE, parallel blocks,
-partial or interleaved rotary, an LM-head bias, remat, dropout) raises
-``NotImplementedError`` at construction instead of being silently ignored.
+One config covers the dense families of the port: Llama-style (RMSNorm,
+half-split RoPE, SiLU-GLU MLP, GQA, untied head, no biases) and GPT-2-style
+(LayerNorm, learned positions, GELU MLP, tied embeddings, biases), trained
+with flash or block-sparse attention (``attn_impl="sparse"``), and the Bloom
+form (LayerNorm, ALiBi, GELU MLP, biases, tied head, a LayerNorm after the
+embedding), which only the serving forward carries: ``CausalLM`` refuses
+``position="alibi"`` and ``embed_norm``. ``TransformerConfig`` keeps the JAX
+package's field names and defaults; a setting outside those families (MoE,
+parallel blocks, partial or interleaved rotary, an LM-head bias, remat,
+dropout) raises ``NotImplementedError`` at construction instead of being
+silently ignored.
 ``scan_layers`` only chooses the numpy layout of ``params_from_numpy`` /
 ``params_to_numpy``; the port's own tree is always stacked.
 
@@ -19,7 +22,8 @@ layers stacked ``[L, ...]``: ``embed.embedding [V, E]``, ``pos_embed [T, E]``
 [L, E]``), ``layers.{attn_norm,mlp_norm}.scale [L, E]`` (LayerNorm also
 ``.bias``), ``layers.mlp.{w_gate,w_up}.kernel [L, E, F]``,
 ``layers.mlp.w_down.kernel [L, F, E]`` (and biases), ``final_norm.scale
-[E]``, ``lm_head.kernel [E, V]`` (untied only).
+[E]``, ``lm_head.kernel [E, V]`` (untied only), ``embed_norm.{scale,bias}
+[E]`` (``embed_norm``).
 
 ``CausalLM`` is the training forward (``CausalLM.__call__`` of the JAX
 package): embedding, learned positions, pre-norm blocks with flash or
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -46,7 +51,7 @@ from deepspeed_tpu_torch.utils.device import resolve_device
 
 NORMS = ("rmsnorm", "layernorm")
 ACTIVATIONS = ("silu_glu", "gelu", "gelu_exact", "relu")
-POSITIONS = ("rope", "learned")
+POSITIONS = ("rope", "learned", "alibi")
 ATTN_IMPLS = PORTED_IMPLS + ("sparse",)
 
 
@@ -79,9 +84,9 @@ class TransformerConfig:
     lm_head_bias: bool = False
     parallel_block: bool = False
     parallel_mlp_norm: bool = False
-    position: str = "rope"  # rope | learned
+    position: str = "rope"  # rope | learned | alibi (serving only)
     rope_theta: float = 500000.0
-    embed_norm: bool = False
+    embed_norm: bool = False  # serving only
     rotary_dim: Optional[int] = None
     rope_interleaved: bool = False
     norm_eps: float = 1e-5
@@ -117,7 +122,6 @@ class TransformerConfig:
             "lm_head_bias": (self.lm_head_bias, False),
             "parallel_block": (self.parallel_block, False),
             "parallel_mlp_norm": (self.parallel_mlp_norm, False),
-            "embed_norm": (self.embed_norm, False),
             "rope_interleaved": (self.rope_interleaved, False),
             "num_experts": (self.num_experts, 0),
             "remat": (self.remat, False),
@@ -213,6 +217,9 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         shapes[f"{prefix}.scale"] = (*lead, E)
         if cfg.norm == "layernorm":
             shapes[f"{prefix}.bias"] = (*lead, E)
+
+    if cfg.embed_norm:
+        norm("embed_norm", ())
 
     def dense(prefix: str, kernel: Tuple[int, ...], bias: Optional[Tuple[int, ...]]):
         shapes[f"{prefix}.kernel"] = kernel
@@ -316,6 +323,21 @@ def sparse_layout(sparse_attention: tuple, num_heads: int, seq_len: int, device)
     return layout, block, layout_lists(layout, device)
 
 
+@functools.lru_cache(maxsize=16)
+def alibi_slopes(num_heads: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    """Per-head ALiBi slopes fp32 ``[num_heads]``, the JAX package's
+    ``alibi_slopes`` (``deepspeed_tpu/models/transformer.py:322-334``, HF's
+    ``build_alibi_tensor``): computed in Python floats, then rounded to
+    fp32. Cached per head count and device, so a forward reuses one tensor."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** p for p in range(1, closest + 1)]
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** p for p in range(1, 2 * (num_heads - closest), 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
 def apply_qk_rope(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary embeddings on q ``[B, S, H, hd]`` and k ``[B, S, kvH, hd]``."""
@@ -395,6 +417,11 @@ class CausalLM(torch.nn.Module):
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
+        for name, value in (("position", "alibi"), ("embed_norm", True)):
+            if getattr(config, name) == value:
+                raise NotImplementedError(
+                    f"TransformerConfig.{name}={value!r}: the PyTorch port serves the Bloom form "
+                    "but does not train it (the ALiBi flash kernels are not ported)")
         self.config = config
 
     def _attention(self, p: Dict[str, Any], x: torch.Tensor, mask, positions) -> torch.Tensor:

@@ -51,13 +51,14 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_rms_norm": [_P, _P, _P, _I64, _I64, _F, _I, _I, _P],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, block_tables, q_positions, new_lens,
+        # q, k_pool, v_pool, slopes (or NULL), block_tables, q_positions, new_lens,
         # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, stream
-        "ds_paged_attention": [_P, _P, _P, _P, _P, _P, _P,
+        "ds_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        # q, k_pool, v_pool, k_scale, v_scale, block_tables, q_positions, new_lens,
-        # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, kv (1 int8 | 2 e4m3), stream
-        "ds_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # q, k_pool, v_pool, k_scale, v_scale, slopes (or NULL), block_tables, q_positions,
+        # new_lens, out, N, C, H, kvH, hd, P, block_size, q_scale, dtype,
+        # kv (1 int8 | 2 e4m3), stream
+        "ds_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "quantizer": {

@@ -17,6 +17,17 @@ batch's block tables, the kernel each page after it is loaded, as
 ``float(code) * scale`` rounded to q's dtype. The full-precision pool never
 exists.
 
+``alibi_slopes`` (fp32 ``[H]``, Bloom's ALiBi; the JAX kernel's
+``alibi=True``) adds ``slope[h] * (t - p)`` to the score of a query at
+position ``p`` against the key at position ``t``, before the causal mask.
+JAX adds ``slope[h] * t``; the two differ by ``slope[h] * p``, one constant
+per query row, which the softmax cancels. The relative form keeps the
+scores of the keys near the query, which carry the weight, exact in fp32,
+where ``slope * t`` at position 2047 (1,720 for head 0 of 32) has an ulp of
+1.2e-4. Either pool type takes it; every ALiBi launch counts in
+``paged_attention.alibi_launches`` (and not in the wrapper's own count), so
+a run can show that the ALiBi form ran.
+
 The two differ in one rounding, as the JAX pair does: the kernel scales q by
 ``hd**-0.5`` in q's dtype before the dot, the plain version divides the fp32
 scores. In fp32 that is ~1e-7 relative; in bf16 it moves a score by up to
@@ -39,13 +50,16 @@ QUANT_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                              new_lens, k_scale=None, v_scale=None):
+                              new_lens, k_scale=None, v_scale=None, alibi_slopes=None):
     """Masked GQA attention of new queries against paged caches: gather the
     row's pages to ``[N, P*bs, kvH, hd]`` (slot index within the gathered view
     == global position), then causal attention over positions. ``new_lens``
     is accepted for signature parity and unused, as in the JAX version.
     With ``k_scale``/``v_scale`` the pool holds codes, and only the gathered
-    slots are dequantised (``deepspeed_tpu/inference/paged.py:127-131``)."""
+    slots are dequantised (``deepspeed_tpu/inference/paged.py:127-131``).
+    With ``alibi_slopes`` the scores get ``slope[h] * (t - p)`` before the
+    mask (``deepspeed_tpu/inference/paged.py:137-142`` adds ``slope[h] * t``:
+    the same softmax)."""
     N, C, H, hd = q.shape
     P = block_tables.shape[1]
     ar = torch.arange(block_size, device=q.device)
@@ -61,6 +75,10 @@ def paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions, 
     scores = torch.einsum("nckgd,ntkd->nkgct", qg, ck).float()
     scores = scores / math.sqrt(hd)
     t_idx = torch.arange(P * block_size, device=q.device)
+    if alibi_slopes is not None:
+        rel = (t_idx[None, None, :] - q_positions.long()[:, :, None]).float()  # [N, C, T]
+        slopes = alibi_slopes.float().reshape(kvH, G)[None, :, :, None, None]
+        scores = scores + slopes * rel[:, None, None, :, :]
     ok = t_idx[None, None, :] <= q_positions.long()[:, :, None]  # [N, C, T]
     scores = torch.where(ok[:, None, None, :, :], scores, torch.full((), -1e30, device=q.device))
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
@@ -76,7 +94,7 @@ def _q_scale(hd: int, dtype: torch.dtype) -> float:
 
 
 def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale=None,
-           v_scale=None):
+           v_scale=None, alibi_slopes=None):
     if q.dim() != 4 or pool_k_l.dim() != 3:
         raise ValueError(
             f"paged_attention: q must be [N, C, H, hd] and the pool [S_flat, kvH, hd], got "
@@ -116,6 +134,11 @@ def _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale=N
                 raise ValueError(f"paged_attention_quant: {name} must be fp32 {list(want)}, got "
                                  f"{t.dtype} {list(t.shape)}")
         scales = [("k_scale", k_scale), ("v_scale", v_scale)]
+    if alibi_slopes is not None:
+        if alibi_slopes.dtype != torch.float32 or tuple(alibi_slopes.shape) != (H,):
+            raise ValueError(f"paged_attention: alibi_slopes must be fp32 [{H}], got "
+                             f"{alibi_slopes.dtype} {list(alibi_slopes.shape)}")
+        scales = scales + [("alibi_slopes", alibi_slopes)]
     ints = [("block_tables", block_tables), ("q_positions", q_positions), ("new_lens", new_lens)]
     for name, t in [("q", q), ("pool_k_l", pool_k_l), ("pool_v_l", pool_v_l)] + scales + ints:
         if t.device != q.device:
@@ -139,68 +162,87 @@ def _refuse_grad(*tensors):
             "tensors that do not require grad")
 
 
+def _count(wrapper, alibi_slopes) -> None:
+    """One launch of ``wrapper``'s kernel: an ALiBi launch (either pool type)
+    counts in ``paged_attention.alibi_launches``, any other in its own."""
+    if alibi_slopes is not None:
+        paged_attention.alibi_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                    new_lens: torch.Tensor, k_scale=None, v_scale=None):
+                    new_lens: torch.Tensor, k_scale=None, v_scale=None, alibi_slopes=None):
     """GQA attention of q ``[N, C, H, hd]`` over one layer's paged pool.
 
     ``new_lens [N]`` int32 (live new tokens per row, 0 for a pad row) bounds
     the pages the kernel reads to the row's live length. ``k_scale``/
-    ``v_scale`` mark a quantised pool (see ``paged_attention_quant``). It has
-    no backward (nor has the JAX kernel): with grad mode on, an input that
-    requires grad raises instead of returning an output with no gradient."""
+    ``v_scale`` mark a quantised pool (see ``paged_attention_quant``);
+    ``alibi_slopes`` fp32 ``[H]`` adds Bloom's ALiBi. It has no backward (nor
+    has the JAX kernel): with grad mode on, an input that requires grad
+    raises instead of returning an output with no gradient."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attention: pass both k_scale and v_scale, or neither")
     if k_scale is not None:
         return paged_attention_quant(q, pool_k_l, pool_v_l, block_tables, q_positions,
-                                     block_size, new_lens, k_scale, v_scale)
+                                     block_size, new_lens, k_scale, v_scale, alibi_slopes)
     _refuse_grad(q, pool_k_l, pool_v_l)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions,
-                                         block_size, new_lens)
+                                         block_size, new_lens, alibi_slopes=alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens)
+    _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens,
+           alibi_slopes=alibi_slopes)
     N, C, H, hd = q.shape
     out = torch.empty_like(q)
     lib = op_builder.load("paged_attention")
     err = lib.ds_paged_attention(
-        q.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr(), block_tables.data_ptr(),
-        q_positions.data_ptr(), new_lens.data_ptr(),
+        q.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr(), _ptr(alibi_slopes),
+        block_tables.data_ptr(), q_positions.data_ptr(), new_lens.data_ptr(),
         out.data_ptr(), N, C, H, pool_k_l.shape[1], hd, block_tables.shape[1], block_size,
         ctypes.c_float(_q_scale(hd, q.dtype)), op_builder.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
-    paged_attention.launches += 1
+    _count(paged_attention, alibi_slopes)
     return out
 
 
 def paged_attention_quant(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                          new_lens, k_scale, v_scale):
+                          new_lens, k_scale, v_scale, alibi_slopes=None):
     """GQA attention of q ``[N, C, H, hd]`` (fp32 | bf16) over one layer's
     quantised pool: int8 or e4m3 codes ``[S_flat, kvH, hd]`` with fp32
-    ``k_scale``/``v_scale [S_flat, kvH, 1]``."""
+    ``k_scale``/``v_scale [S_flat, kvH, 1]``; ``alibi_slopes`` as in
+    ``paged_attention``."""
     _refuse_grad(q, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions,
-                                         block_size, new_lens, k_scale, v_scale)
+                                         block_size, new_lens, k_scale, v_scale, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_quant: unsupported device {q.device}")
-    _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale, v_scale)
+    _check(q, pool_k_l, pool_v_l, block_tables, q_positions, new_lens, k_scale, v_scale,
+           alibi_slopes)
     N, C, H, hd = q.shape
     out = torch.empty_like(q)
     lib = op_builder.load("paged_attention")
     err = lib.ds_paged_attention_quant(
         q.data_ptr(), pool_k_l.data_ptr(), pool_v_l.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(), new_lens.data_ptr(),
-        out.data_ptr(), N, C, H, pool_k_l.shape[1], hd, block_tables.shape[1], block_size,
-        ctypes.c_float(_q_scale(hd, q.dtype)), op_builder.DTYPE_CODES[q.dtype],
-        QUANT_KV_CODES[pool_k_l.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        v_scale.data_ptr(), _ptr(alibi_slopes), block_tables.data_ptr(), q_positions.data_ptr(),
+        new_lens.data_ptr(), out.data_ptr(), N, C, H, pool_k_l.shape[1], hd,
+        block_tables.shape[1], block_size, ctypes.c_float(_q_scale(hd, q.dtype)),
+        op_builder.DTYPE_CODES[q.dtype], QUANT_KV_CODES[pool_k_l.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: cudaError {err}")
-    paged_attention_quant.launches += 1
+    _count(paged_attention_quant, alibi_slopes)
     return out
 
 
 paged_attention.launches = 0
+paged_attention.alibi_launches = 0
 paged_attention_quant.launches = 0

@@ -105,20 +105,26 @@ def test_init_params_is_seeded_and_shaped():
 
 
 @pytest.mark.parametrize("model_over", [
-    {"position": "alibi"}, {"num_experts": 4}, {"norm": "layernorm"},
-    {"position": "learned"}, {"tie_embeddings": True}, {"qkv_bias": True},
+    {"position": "alibi"}, {"num_experts": 4}, {"embed_norm": True},
+    {"position": "learned"}, {"parallel_block": True}, {"lm_head_bias": True},
 ])
 def test_unsupported_model_config_raises(model_over):
-    """ALiBi and MoE are not ported at all; the GPT-2 family trains but is
-    refused by the serving engine."""
-    if {"position": "alibi"} == model_over or "num_experts" in model_over:
+    """MoE, parallel blocks and an LM-head bias are not ported at all; the
+    Bloom form (ALiBi, the embedding LayerNorm) serves but does not train;
+    learned positions (GPT-2) train but do not serve."""
+    if set(model_over) & {"num_experts", "parallel_block", "lm_head_bias"}:
         with pytest.raises(NotImplementedError):
             TransformerConfig(**{**_tiny().__dict__, **model_over})
         return
     cfg = TransformerConfig(**{**_tiny().__dict__, **model_over})
     params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    if model_over == {"position": "learned"}:
+        with pytest.raises(NotImplementedError):
+            InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
+        return
     with pytest.raises(NotImplementedError):
-        InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
+        causal_lm_spec(cfg)
+    InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
 
 
 @pytest.mark.parametrize("engine_over", [

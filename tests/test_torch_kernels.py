@@ -12,7 +12,9 @@ and launches nothing. Tolerances: rms_norm 1e-5 fp32 / 1e-2 bf16 (one output
 ulp); paged_attention 2e-5 fp32 / 2e-2 bf16 per element (q scaled in bf16
 by the kernel, scores and p rounded to bf16 by the plain version), and a
 relative L2 error of each query's output vector of at most 1e-4 fp32 / 2e-2
-bf16, which holds a long row's small outputs as tightly as a short row's.
+bf16, which holds a long row's small outputs as tightly as a short row's;
+the same limits hold the ALiBi form over every pool type, at G = 1 (Bloom's
+MHA) and G = 4, pad rows (``new_lens`` 0) included.
 The three flash-attention kernels are held to their plain versions by the
 relative L2 error of each (b, s, h) row vector of out, dq, dk and dv (1e-5
 fp32: summation order only; 2e-2 bf16: P and dS are rounded to bf16 before
@@ -156,6 +158,54 @@ def test_paged_quant_kernel_matches_plain(cuda_device, case, dtype, kv):
     assert float(rel.max()) <= rel_l2, float(rel.max())
 
 
+ALIBI_CASES = {
+    # Bloom's MHA (G = 1): one live row of a 16-row decode tile
+    "decode G=1": dict(C=1, H=32, kvH=32),
+    "long G=1, pad row": dict(C=1, H=32, kvH=32, ends=(200, 639, 999), P=64, pad_row=True),
+    "prefill G=1": dict(C=40, H=32, kvH=32),
+    "pad_row G=1": dict(C=4, H=32, kvH=32, pad_row=True),
+    "garbage G=1": dict(C=4, H=32, kvH=32, garbage=True),
+    # GQA (G = 4): the slope of row (c, g) of kv head kh is slope[kh * 4 + g]
+    "long G=4": dict(C=1, ends=(200, 639, 999), P=64),
+    "prefill G=4, pad row": dict(C=40, pad_row=True),
+    "hd64 G=4": dict(C=5, H=8, kvH=2, hd=64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ALIBI_CASES))
+def test_paged_alibi_kernel_matches_plain(cuda_device, case, dtype, kv):
+    """The ALiBi form over a pool of q's dtype (fp32 or bf16) and over int8
+    and e4m3 pools, at G = 1 and G = 4, held to the limits of the forms
+    without ALiBi; it counts in ``paged_attention.alibi_launches`` only."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    kw = ALIBI_CASES[case]
+    *arrays, bs = _paged_inputs(**kw)
+    q, pk, pv, bt, pos, lens = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    q = q.to(dtype)
+    pools = dict(pool_k_l=pk.to(dtype), pool_v_l=pv.to(dtype))
+    if kv is not None:
+        kq, ks, vq, vs = _quantised_pool(pk, pv, kv)
+        pools = dict(pool_k_l=kq, pool_v_l=vq, k_scale=ks, v_scale=vs)
+    slopes = alibi_slopes(q.shape[2], cuda_device)
+    before = (paged_attention.alibi_launches, paged_attention.launches,
+              paged_attention_quant.launches)
+    got = paged_attention(q, block_tables=bt, q_positions=pos, block_size=bs, new_lens=lens,
+                          alibi_slopes=slopes, **pools)
+    torch.cuda.synchronize()
+    assert (paged_attention.alibi_launches, paged_attention.launches,
+            paged_attention_quant.launches) == (before[0] + 1, *before[1:])
+    want = paged_attention_reference(q, block_tables=bt, q_positions=pos, block_size=bs,
+                                     new_lens=lens, alibi_slopes=slopes, **pools).float()
+    tol, rel_l2 = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= rel_l2, float(rel.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2048 * 37 + 123, 2048 * 6, 100, 4099])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -194,6 +244,9 @@ def test_paged_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         paged_attention(q[..., :96].contiguous(), pk[..., :96].contiguous(),
                         pv[..., :96].contiguous(), bt, pos, bs, new_lens=lens)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        paged_attention(q, pk, pv, bt, pos, bs, new_lens=lens,
+                        alibi_slopes=torch.ones(q.shape[2] - 1, device=cuda_device))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -214,6 +267,16 @@ def test_cpu_tensors_take_the_plain_versions():
         paged_attention(t[0], kq, vq, *t[3:5], bs, new_lens=t[5], k_scale=ks, v_scale=vs),
         paged_attention_reference(t[0], kq, vq, *t[3:5], bs, t[5], ks, vs))
     assert paged_attention_quant.launches == before
+    slopes = torch.tensor([0.5, 0.25, 0.125, 0.0625, 0.03, 0.02, 0.01, 0.005])
+    before = paged_attention.alibi_launches
+    for scales in ({}, dict(k_scale=ks, v_scale=vs)):
+        pools = (kq, vq) if scales else t[1:3]
+        torch.testing.assert_close(
+            paged_attention(t[0], *pools, *t[3:5], bs, new_lens=t[5], alibi_slopes=slopes,
+                            **scales),
+            paged_attention_reference(t[0], *pools, *t[3:5], bs, t[5], alibi_slopes=slopes,
+                                      **scales))
+    assert paged_attention.alibi_launches == before
     before = (quant.quantize_int8.launches, quant.quantize_int8_stochastic.launches,
               quant.dequantize_int8.launches)
     q, s = quant.quantize_int8(torch.from_numpy(x))

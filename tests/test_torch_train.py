@@ -211,8 +211,10 @@ def test_zero_section_of_a_jax_config_loads():
     {"sparse_embedding_grads": True},
 ])
 def test_model_refusals(model_over):
+    """Refused at construction, or (ALiBi, which only serving carries) by
+    the training forward."""
     with pytest.raises(NotImplementedError):
-        TransformerConfig(**COMMON, **model_over)
+        causal_lm_spec(TransformerConfig(**COMMON, **model_over))
 
 
 def test_metrics_stay_on_the_device_between_prints():
