@@ -27,7 +27,9 @@
 // keys near the query that carry the softmax's weight. The product and the sum
 // are rounded separately (__fmul_rn, __fadd_rn), as the plain version's two
 // tensor ops round them. The slopes of a block's query rows are loaded into
-// shared memory once; a template flag keeps the form without ALiBi as it was.
+// shared memory once; a template flag keeps the form without ALiBi as it was
+// (a run-time branch on slopes == nullptr instead made the quantised decode
+// form spill and run ~27 % slower on an H100 80GB HBM3 at 700 W; PERF.md).
 //
 // What bounds it on an H100: at decode (C = 1) bytes. Every live KV page is
 // read once (hd * 2 values * itemsize per token and kv head) for 4 * G * hd

@@ -136,26 +136,13 @@ def _check_servable(cfg: TransformerConfig) -> None:
     """The serving forward carries the dense sequential-block decoder in the
     Llama form (RMSNorm, RoPE, SiLU-GLU, GQA, untied head) and the Bloom form
     (LayerNorm, ALiBi, GELU, q/k/v/dense/MLP biases, tied head, embedding
-    LayerNorm), each setting read on its own (relu and exact GELU too). It
-    refuses, naming the setting, what that forward does not carry: learned
-    positions, parallel blocks (Falcon, GPT-NeoX), an LM-head bias, partial
-    or interleaved rotary and MoE. ``TransformerConfig`` refuses all but the
-    first at construction today; the check keeps serving closed to them when
-    a training slice lifts that."""
-    refused = {
-        "position": cfg.position == "learned",
-        "parallel_block": cfg.parallel_block,
-        "parallel_mlp_norm": cfg.parallel_mlp_norm,
-        "lm_head_bias": cfg.lm_head_bias,
-        "rotary_dim": cfg.rotary_dim not in (None, cfg.dims_per_head),
-        "rope_interleaved": cfg.rope_interleaved,
-        "num_experts": cfg.num_experts > 0,
-    }
-    for name, bad in refused.items():
-        if bad:
-            raise NotImplementedError(
-                f"TransformerConfig.{name}={getattr(cfg, name)!r}: the PyTorch port does not "
-                "serve it")
+    LayerNorm), each setting read on its own (relu and exact GELU too).
+    ``TransformerConfig`` refuses parallel blocks, an LM-head bias, partial
+    or interleaved rotary and MoE at construction; learned positions, which
+    training accepts, are refused here."""
+    if cfg.position == "learned":
+        raise NotImplementedError(
+            "TransformerConfig.position='learned': the PyTorch port does not serve it")
 
 
 class InferenceEngineV2:

@@ -26,7 +26,6 @@ a missing or misplaced one), and the same numpy tree goes to both packages.
   training forward refuses ``position="alibi"`` and ``embed_norm``.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +45,6 @@ from deepspeed_tpu.models.transformer import TransformerConfig as JaxConfig
 from deepspeed_tpu.models.transformer import alibi_slopes as jax_alibi_slopes
 from deepspeed_tpu.ops.pallas.paged_attention import flash_decode_paged
 from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_forward
-from deepspeed_tpu_torch.inference.engine_v2 import _check_servable
 from deepspeed_tpu_torch.inference.woq import WOQTensor
 from deepspeed_tpu_torch.models import (
     CausalLM,
@@ -261,16 +259,11 @@ REFUSED = {"position": "learned", "parallel_block": True, "parallel_mlp_norm": T
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_serving_refuses_unported_settings_by_name(bloom, name):
     """Each setting the serving forward does not carry raises, naming it:
-    from the engine, and from ``_check_servable`` for a config whose
-    construction check has been lifted (as a later training slice may)."""
+    learned positions from ``_check_servable``, the others at construction."""
     cfg = bloom[2]
     with pytest.raises(NotImplementedError, match=name):
         over = TransformerConfig(**{**cfg.__dict__, name: REFUSED[name]})
         InferenceEngineV2(over, bloom[3], BASE, device="cpu")
-    lifted = dataclasses.replace(cfg)
-    object.__setattr__(lifted, name, REFUSED[name])
-    with pytest.raises(NotImplementedError, match=name):
-        _check_servable(lifted)
 
 
 @pytest.mark.parametrize("over,name", [({}, "position"), ({"position": "rope"}, "embed_norm"),
