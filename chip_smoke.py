@@ -16,7 +16,9 @@ Phases, any failure exits non-zero:
           with an all-zero block, which must equal their plain versions bit for
           bit; the three flash-attention kernels (forward, dq, dkv) at the
           training path's shapes (llama3-1b, GPT-2-125M, Llama-3-8B heads, a
-          ragged S = 1000 with a keep-mask), each in bf16 and fp32; the three
+          ragged S = 1000 with a keep-mask), each in bf16 and fp32, and their
+          ALiBi form at Bloom-560M's shape (G = 1), the llama3-1b heads (G =
+          4), hd 128 and the ragged keep-mask set; the three
           block-sparse kernels (forward, dq, dkv) at the sparse training
           path's shape (BigBird, block 16, S 4096, 32 heads, D 64, causal), a
           ``fixed`` layout at block 32 and D 128, a non-causal BigBird layout
@@ -61,6 +63,12 @@ Phases, any failure exits non-zero:
           before and read just after: the loss must be finite and fall, and
           the launches must equal 16 per micro-step for each flash kernel and
           33 for RMSNorm. One more step is profiled;
+   bloom  Bloom-560M (``BLOOM_560M``, the public config's widths, random
+          weights from seed 0 with every bias and LayerNorm parameter
+          redrawn) through the same entry points and config: 24 ALiBi
+          launches of each flash kernel per micro-step, none without ALiBi,
+          no RMSNorm (its norms are LayerNorm); the fused cross entropy runs
+          with the tied head. One more step is profiled;
    sparse the same preset and config with BigBird block-sparse attention
           (``attn_impl="sparse"``, block 16, 1 random block, a 3-block window,
           1 global block, seed 0) at seq 4096, micro 2, gradient accumulation
@@ -72,7 +80,9 @@ Phases, any failure exits non-zero:
 5. slice  one micro-step (4 x 2048, a padded row) of a 2-layer, full-width
           llama3-1b through the kernels and through the plain versions: the
           loss and every gradient leaf compared; the same for the sparse
-          config (2 x 4096, no padding mask, so the sparse kernels run);
+          config (2 x 4096, no padding mask, so the sparse kernels run) and
+          for a 2-layer, full-width Bloom-560M (4 x 2048, a padded row, the
+          ALiBi form);
 6. train  the GPT-2-125M headline (bench.py's ``GPT2_HEADLINE_DIMS`` with
           ``scan_layers=False, fused_ce=False``): micro 4, gradient
           accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
@@ -80,7 +90,9 @@ Phases, any failure exits non-zero:
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (none for the
           quantisers; for the sparse kernels SDPA with the layout expanded to
-          a token mask; for the ALiBi form SDPA with the bias as a float mask).
+          a token mask; for the ALiBi forms SDPA with the bias and the causal
+          mask as one float mask), the flash kernels' ALiBi form at
+          Bloom-560M's shape beside the form without it.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -104,6 +116,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 import deepspeed_tpu_torch
 import deepspeed_tpu_torch.inference.paged as paged_mod
@@ -127,9 +140,9 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 )
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
 from deepspeed_tpu_torch.utils.checks import (
+    check_flash_kernels,
     check_sparse_kernels,
     flash_inputs,
-    row_rel_l2,
 )
 
 # the module (``deepspeed_tpu_torch.ops`` re-exports its function of the same name)
@@ -169,12 +182,23 @@ PAGED_TOL = {torch.bfloat16: (2e-2, 2e-2, 2e-2), torch.float32: (2e-5, 2e-5, 1e-
 # matched bit for bit), lse max 1.9e-6 (one fp32 ulp at |lse| ~ 16).
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LSE_TOL = 1e-5
+# the ALiBi form's lse: past a keep-mask's end the bias moves a row's lse to
+# ~10^2-10^3, where one fp32 ulp (6e-5 at 10^3) passes LSE_TOL, so its error
+# is held to 1e-6 of max(|lse|, 10): about 8 ulps, and LSE_TOL itself where
+# |lse| <= 10. The rest of each ALiBi check uses FLASH_TOL as above.
+LSE_ALIBI_REL = 1e-6
 LOGITS_REL_L2 = 5e-2  # kernels vs plain versions through 32 bf16 layers
 # 2-layer llama3-1b micro-step, kernels vs plain versions in bf16: relative
 # error of the loss, and relative L2 error of each gradient leaf (first full
 # run: 4.4e-6 and at most 1.27e-2, the embedding's; the limits leave 20x and 4x)
 SLICE_LOSS_REL = 1e-4
 SLICE_GRAD_REL_L2 = 5e-2
+# the key bias gets no gradient in exact arithmetic without RoPE (adding one
+# vector to every key shifts a row's scores by a constant, which the softmax
+# removes): both readings are rounding noise, so its difference is held to
+# SLICE_GRAD_REL_L2 of the query bias's gradient norm, the same sums'
+# scale, instead of its own
+SHIFT_INVARIANT = ("layers.attn.wk.bias", "layers.attn.wq.bias")
 SPIN_CYCLES = 4_000_000  # ~2 ms of GPU clock: longer than the host needs to enqueue a timed group
 
 # The JAX package's headline GPT-2-125M dimensions (bench.py GPT2_HEADLINE_DIMS)
@@ -201,7 +225,18 @@ FLASH_SETS = {
     # right padding: row 1 keeps 613 keys, row 2 none (every query row masked)
     "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
 }
+# the ALiBi form of the same kernels (Bloom's slopes): Bloom-560M's
+# training shape (G = 1), the llama3-1b heads (G = 4: the slope is the query
+# head's, not its kv head's), hd 128, and the ragged keep-mask set
+FLASH_ALIBI_SETS = {
+    "bloom-560m": dict(B=4, S=2048, H=16, kvH=16, hd=64),
+    "llama3-1b heads": dict(B=4, S=2048, H=32, kvH=8, hd=64),
+    "llama3-8b heads": dict(B=1, S=2048, H=32, kvH=8, hd=128),
+    "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
+}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# launch counters of their ALiBi form (``<wrapper>.alibi_launches``)
+FLASH_ALIBI_KERNELS = tuple(f"{k}_alibi" for k in FLASH_KERNELS)
 SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # BigBird as the model config gives it (the JAX defaults: 1 random block, a
 # 3-block window, 1 global block, seed 0) at the BigBird paper's length
@@ -248,12 +283,14 @@ def card_line() -> str:
 def counted() -> dict:
     """Every kernel's launch counter by name: (wrapper, attribute). The
     paged-attention wrappers count their ALiBi launches, over any pool, in
-    ``paged_attention.alibi_launches``."""
+    ``paged_attention.alibi_launches``; each flash wrapper its own in
+    ``<wrapper>.alibi_launches``."""
     return {"rms_norm": (rms_norm, "launches"), "paged_attention": (paged_attention, "launches"),
             "paged_attention_quant": (paged_attention_quant, "launches"),
             "paged_attention_alibi": (paged_attention, "alibi_launches"),
             **{name: (getattr(quant_mod, name), "launches") for name in QUANT_KERNELS},
             **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS},
+            **{f"{name}_alibi": (getattr(fa, name), "alibi_launches") for name in FLASH_KERNELS},
             **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS}}
 
 
@@ -434,45 +471,19 @@ def alibi_sdpa_mask(batch, mask):
     return torch.where(mask, bias, float("-inf")).to(batch["q"].dtype)
 
 
-def run_flash_kernels(qs, k, v, do, keep):
-    """Forward, delta (plain fp32, outside the kernels, as in JAX), dq, dkv."""
-    out, lse = fa.flash_fwd(qs, k, v, keep)
-    delta = fa.flash_delta(do, out)
-    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta)
-    dk, dv = fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta)
-    return out, lse, delta, dq, dk, dv
-
-
-def check_flash(dev, shape, dtype):
-    """The three flash kernels against their plain versions on the same
-    inputs (the plain dq/dkv take the kernel's lse and delta, so each kernel
-    is held alone). Returns (ok, {name: (row rel L2, max abs)}, lse error)."""
+def check_flash(dev, shape, dtype, alibi=False):
+    """The three flash kernels (with ``alibi``, their ALiBi form, on the
+    model's slopes for the shape's heads) against their plain versions on the
+    same inputs (the plain dq/dkv take the kernel's lse and delta, so each
+    kernel is held alone). Returns (ok, {name: (row rel L2, max abs)}, lse
+    error: absolute, or with ``alibi`` as a share of max(|lse|, 10))."""
     q, k, v, do, keep = flash_inputs(dev, **shape)
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
-    qs = fa.prescale_q(q)
-    out, lse, delta, dq, dk, dv = run_flash_kernels(qs, k, v, do, keep)
-    torch.cuda.synchronize()
-    want_out, want_lse = fa.flash_fwd_reference(qs, k, v, keep)
-    want_dq = fa.flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta)
-    want_dk, want_dv = fa.flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta)
-    readings = {}
-    ok = True
-    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
-                            ("dv", dv, want_dv)):
-        rel = row_rel_l2(got, want)
-        readings[name] = (rel, float((got.float() - want.float()).abs().max()))
-        ok &= bool(torch.isfinite(got).all()) and got.dtype == dtype and rel <= FLASH_TOL[dtype]
-    B, S = q.shape[:2]
-    # a query row sees a key iff some key j <= i is kept; keys past S do not exist
-    live = (torch.ones(B, S, dtype=torch.int32, device=dev) if keep is None else keep).cumsum(1) > 0
-    lse_err = float((lse - want_lse).abs().transpose(1, 2)[live].max())
-    ok &= lse_err <= LSE_TOL
-    dead = ~live
-    ok &= bool((out[dead] == 0).all()) and bool((dq[dead] == 0).all())
-    ok &= bool((lse.transpose(1, 2)[dead] == fa.NEG_INF).all())
-    if keep is not None:
-        dropped = keep == 0
-        ok &= bool((dk[dropped] == 0).all()) and bool((dv[dropped] == 0).all())
+    slopes = fa.alibi_log2(alibi_slopes(shape["H"], dev)) if alibi else None
+    readings, lse_abs, lse_rel, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
+    lse_err = lse_rel if alibi else lse_abs
+    ok = (all(rel <= FLASH_TOL[dtype] for rel, _ in readings.values()) and dead_exact
+          and lse_err <= (LSE_ALIBI_REL if alibi else LSE_TOL))
     return ok, readings, lse_err
 
 
@@ -677,18 +688,26 @@ def phase_checks(dev, max_err):
                 if not ok:
                     failures.append(f"paged_attention_quant {label} {kv} {dtype}")
     failures += check_paged_alibi(dev, rng, checks, max_err)
-    for label, shape in FLASH_SETS.items():
+    flash_sets = [(label, shape, False) for label, shape in FLASH_SETS.items()]
+    flash_sets += [(label, shape, True) for label, shape in FLASH_ALIBI_SETS.items()]
+    for label, shape, alibi in flash_sets:
+        form, suffix = ("flash alibi", "_alibi") if alibi else ("flash", "")
+        G = shape["H"] // shape["kvH"]
         for dtype in (torch.bfloat16, torch.float32):
-            ok, readings, lse_err = check_flash(dev, shape, dtype)
+            ok, readings, lse_err = check_flash(dev, shape, dtype, alibi)
             if dtype == torch.bfloat16:
                 for kernel, parts in (("flash_fwd", ("out",)), ("flash_bwd_dq", ("dq",)),
                                       ("flash_bwd_dkv", ("dk", "dv"))):
-                    max_err[kernel] = max([max_err[kernel]] + [readings[p][1] for p in parts])
+                    key = kernel + suffix
+                    max_err[key] = max([max_err[key]] + [readings[p][1] for p in parts])
             text = ", ".join(f"{n} {r:.3e} (max_abs {a:.3e})" for n, (r, a) in readings.items())
-            log(f"[check] flash {label} {str(dtype)[6:]}: row rel L2 {text}; lse max_abs "
-                f"{lse_err:.3e}; tol {FLASH_TOL[dtype]} / lse {LSE_TOL} {'ok' if ok else 'FAIL'}")
+            lse_text = (f"lse max error / max(|lse|, 10) {lse_err:.3e}; tol {FLASH_TOL[dtype]} / "
+                        f"lse {LSE_ALIBI_REL} of max(|lse|, 10)" if alibi else
+                        f"lse max_abs {lse_err:.3e}; tol {FLASH_TOL[dtype]} / lse {LSE_TOL}")
+            log(f"[check] {form} {label} (G = {G}) {str(dtype)[6:]}: row rel L2 {text}; "
+                f"{lse_text} {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"flash {label} {dtype}")
+                failures.append(f"{form} {label} {dtype}")
             torch.cuda.empty_cache()
     for label, shape in SPARSE_SETS.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -972,6 +991,13 @@ BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=4 * 4096
                  num_heads=32, max_seq_len=2048, norm="layernorm", activation="gelu",
                  position="alibi", norm_eps=1e-5, qkv_bias=True, dense_bias=True,
                  embed_norm=True, tie_embeddings=True)
+# bigscience/bloom-560m's public config (vocab_size 250880, hidden_size 1024,
+# n_layer 24, n_head 16: head dim 64, layer_norm_epsilon 1e-5), mapped the
+# same way; max_seq_len 2048, Bloom's pretraining length
+BLOOM_560M = dict(vocab_size=250880, hidden_size=1024, intermediate_size=4 * 1024, num_layers=24,
+                  num_heads=16, max_seq_len=2048, norm="layernorm", activation="gelu",
+                  position="alibi", norm_eps=1e-5, qkv_bias=True, dense_bias=True,
+                  embed_norm=True, tie_embeddings=True)
 # (tag, engine settings beside SERVE_CONFIG) of the Bloom serving phase
 BLOOM_ENGINES = {
     "bloom-7b1 bf16": {},
@@ -980,14 +1006,14 @@ BLOOM_ENGINES = {
 }
 
 
-def bloom_params(cfg, dev):
-    """Random bf16 weights from seed 0, then every bias, LayerNorm scale and
-    LayerNorm bias redrawn from seed 1 (scales 1 + 0.1 n, biases 0.1 n):
-    init makes them 1 and 0, which would hide a bias or a norm parameter the
-    forward dropped."""
-    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
+def bloom_params(cfg, device, dtype=torch.bfloat16, seed=0):
+    """Random weights in ``dtype`` from ``seed``, then every bias, LayerNorm
+    scale and LayerNorm bias redrawn from ``seed + 1`` (scales 1 + 0.1 n,
+    biases 0.1 n): init makes them 1 and 0, which would hide a bias or a norm
+    parameter the forward dropped."""
+    params = init_params(cfg, seed=seed, device=device, dtype=dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
     for path, t in flatten(params).items():
         if path.endswith(".bias"):
             t.normal_(0.0, 0.1, generator=gen)
@@ -1095,12 +1121,13 @@ def phase_bloom_serve(dev, results):
 
 
 def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profile=False,
-                flops_per_token=None):
-    """Phases 4 and 6: ``initialize`` + ``train_batch`` at full size. Returns
+                flops_per_token=None, init=init_params):
+    """Phases 4 and 6: ``initialize`` + ``train_batch`` at full size, from fp32
+    masters ``init(cfg, seed=0, device=dev, dtype=torch.float32)``. Returns
     the launch counts of the counted steps, or None on failure. MFU uses
     ``flops_per_token`` where given, else the JAX formula."""
     t0 = time.perf_counter()
-    masters = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    masters = init(cfg, seed=0, device=dev, dtype=torch.float32)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=causal_lm_spec(cfg, example_seq_len=seq),
         config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro,
@@ -1163,29 +1190,42 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
     return launches
 
 
-def phase_slice_check(dev, results, sparse=False) -> bool:
-    """Phase 5: loss and gradients of one micro-step of a 2-layer full-width
-    llama3-1b, through the kernels and through the plain versions: flash
-    attention at 4 x 2048 with a padded row, or (``sparse``) the sparse
-    config at 2 x 4096 without a padding mask (which would take the dense
-    path)."""
-    tag = "slice sparse" if sparse else "slice"
-    over = dict(attn_impl="sparse", sparse_attention=SPARSE_ATTENTION) if sparse else {}
+def slice_config(kind):
+    """(config, batch shape, padded, counters the kernels bump, their module
+    and wrappers) of phase 5's micro-step: ``llama`` (flash attention with a
+    padded row), ``sparse`` (the sparse config without a padding mask, which
+    would take the dense path) or ``bloom`` (2-layer full-width Bloom-560M,
+    the ALiBi form, a padded row)."""
+    if kind == "bloom":
+        cfg = TransformerConfig(**dict(BLOOM_560M, num_layers=2), dtype=torch.bfloat16)
+        return cfg, (4, 2048), True, FLASH_ALIBI_KERNELS, fa, FLASH_KERNELS
+    over = dict(attn_impl="sparse", sparse_attention=SPARSE_ATTENTION) if kind == "sparse" else {}
     cfg = dataclasses.replace(PRESETS["llama3-1b"], num_layers=2, dtype=torch.bfloat16, **over)
-    params = init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
+    if kind == "sparse":
+        return cfg, (2, SPARSE_SEQ), False, SPARSE_KERNELS, bs, SPARSE_KERNELS
+    return cfg, (4, 2048), True, FLASH_KERNELS, fa, FLASH_KERNELS
+
+
+def phase_slice_check(dev, results, kind="llama") -> bool:
+    """Phase 5: loss and gradients of one micro-step of a 2-layer full-width
+    model through the kernels and through the plain versions (``slice_config``
+    names the three kinds); every gradient leaf is compared, the key bias
+    (``SHIFT_INVARIANT``) on its query bias's scale."""
+    tag = "slice" if kind == "llama" else f"slice {kind}"
+    cfg, (B, S), padded, counters, module, wrappers = slice_config(kind)
+    init = bloom_params if kind == "bloom" else init_params
+    params = init(cfg, seed=1, device=dev, dtype=torch.bfloat16)
     flat = flatten(params)
     for t in flat.values():
         t.requires_grad_(True)
     model = CausalLM(cfg)
     rng = np.random.default_rng(2)
-    B, S = (2, SPARSE_SEQ) if sparse else (4, 2048)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     batch = {"input_ids": ids}
-    if not sparse:
+    if padded:
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         mask[1, 1500:] = 0
         batch["attention_mask"] = mask
-    module, kernels = (bs, SPARSE_KERNELS) if sparse else (fa, FLASH_KERNELS)
 
     def step():
         loss, _ = model(params, batch, train=True)
@@ -1195,46 +1235,153 @@ def phase_slice_check(dev, results, sparse=False) -> bool:
     loss_k, grads_k = step()
     torch.cuda.synchronize()
     launches = launch_counts()
-    expect = dict({k: 0 for k in launches}, rms_norm=2 * cfg.num_layers + 1,
-                  **{k: cfg.num_layers for k in kernels})
+    rms = 2 * cfg.num_layers + 1 if cfg.norm == "rmsnorm" else 0
+    expect = dict({k: 0 for k in launches}, rms_norm=rms, **{k: cfg.num_layers for k in counters})
     with contextlib.ExitStack() as stack:
-        for k in kernels:
+        for k in wrappers:
             stack.enter_context(mock.patch.object(module, k, getattr(module, f"{k}_reference")))
         stack.enter_context(mock.patch.object(norms_mod, "rms_norm_fwd", rms_norm_reference))
         loss_p, grads_p = step()
     torch.cuda.synchronize()
     plain_launches = launch_counts()
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grads_k, grads_p = dict(zip(flat, grads_k)), dict(zip(flat, grads_p))
     rels = {}
-    for path, gk, gp in zip(flat, grads_k, grads_p):
-        rels[path] = float((gk.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30))
+    for path in flat:
+        gk, gp = grads_k[path].float(), grads_p[path].float()
+        scale = gp
+        if path == SHIFT_INVARIANT[0] and cfg.position != "rope":
+            scale = grads_p[SHIFT_INVARIANT[1]].float()
+        rels[path] = float((gk - gp).norm() / scale.norm().clamp_min(1e-30))
     worst = max(rels, key=rels.get)
     ok = (launches == expect and plain_launches == launches and math.isfinite(loss_rel)
           and loss_rel <= SLICE_LOSS_REL and all(r <= SLICE_GRAD_REL_L2 for r in rels.values())
-          and all(bool(torch.isfinite(g).all()) for g in grads_k))
-    log(f"[{tag}] 2-layer llama3-1b micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
+          and all(bool(torch.isfinite(g).all()) for g in grads_k.values()))
+    name = "bloom-560m" if kind == "bloom" else "llama3-1b"
+    log(f"[{tag}] 2-layer {name} micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
         f"{float(loss_p):.5f} (rel {loss_rel:.2e}, bound {SLICE_LOSS_REL}); gradient leaves rel L2 "
         f"max {rels[worst]:.3e} at {worst} (bound {SLICE_GRAD_REL_L2}); launches {launches} "
         f"(expected {expect}), plain run launched none: {plain_launches == launches} "
         f"{'ok' if ok else 'FAIL'}")
     for path, r in sorted(rels.items()):
-        log(f"[{tag}]   {path}: {r:.3e}")
+        note = " (on the query bias's scale)" if path == SHIFT_INVARIANT[0] else ""
+        log(f"[{tag}]   {path}: {r:.3e}{note}")
     results[tag] = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-                        "loss_rel": loss_rel, "grad_rel_l2": rels}
+                    "loss_rel": loss_rel, "grad_rel_l2": rels}
     return ok
 
 
-def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel):
+def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel, alibi=False):
     """Bytes the kernel must move (each input read once, each output written
-    once) and the flops of its products over the S(S+1)/2 causal pairs."""
+    once) and the flops of its products over the S(S+1)/2 causal pairs; with
+    ``alibi`` also the fp32 slopes and 2 flops per pair (slope times
+    distance, added), which each of the three kernels computes."""
     q_bytes, kv_bytes, row_bytes = B * S * H * hd * itemsize, B * S * kvH * hd * itemsize, B * H * S * 4
     pairs = S * (S + 1) // 2
+    extra_bytes, extra_flops = (4 * H, 2 * B * H * pairs) if alibi else (0, 0)
     if kernel == "flash_fwd":  # q, k, v -> out, lse; products q.k, p.v
-        return 2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * 2 * B * H * pairs * hd
-    if kernel == "flash_bwd_dq":  # q, k, v, dO, lse, delta -> dq; q.k, dO.v, ds.k
-        return 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * 2 * B * H * pairs * hd
-    # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
-    return 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * 2 * B * H * pairs * hd
+        nbytes, flops = 2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * 2 * B * H * pairs * hd
+    elif kernel == "flash_bwd_dq":  # q, k, v, dO, lse, delta -> dq; q.k, dO.v, ds.k
+        nbytes, flops = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * 2 * B * H * pairs * hd
+    else:  # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
+        nbytes, flops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * 2 * B * H * pairs * hd
+    return nbytes + extra_bytes, flops + extra_flops
+
+
+def time_flash(dev, launches, max_err, timing, alibi=False):
+    """The three flash kernels, bf16, no keep-mask, beside their bounds, plain
+    versions and SDPA (forward alone, and its whole backward beside dq + dkv):
+    at the llama3-1b training shape, or with ``alibi`` their ALiBi form at
+    Bloom-560M's (SDPA with the bias and the causal mask folded into one float
+    mask built beforehand; the SDPA backend that ran is logged)."""
+    shape = FLASH_ALIBI_SETS["bloom-560m"] if alibi else FLASH_SETS["llama3-1b"]
+    B, S, H, kvH, hd = (shape[k] for k in ("B", "S", "H", "kvH", "hd"))
+    q, k, v, do, _ = flash_inputs(dev, **shape)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    qs = fa.prescale_q(q)
+    natural = alibi_slopes(H, dev) if alibi else None
+    sl = fa.alibi_log2(natural) if alibi else None
+    out, lse = fa.flash_fwd(qs, k, v, None, sl)
+    delta = fa.flash_delta(do, out)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(qs, k, v, None, sl),
+                      lambda: fa.flash_fwd_reference(qs, k, v, None, sl)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta, sl),
+                         lambda: fa.flash_bwd_dq_reference(qs, k, v, None, do, lse, delta, sl)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta, sl),
+                          lambda: fa.flash_bwd_dkv_reference(qs, k, v, None, do, lse, delta, sl)),
+    }
+    # library yardstick (never called by the port): SDPA in its [B, H, S, hd]
+    # layout, forward alone and its whole backward
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    if alibi:  # natural-log slopes: SDPA's softmax is base e, its scale hd**-0.5
+        pos = torch.arange(S, device=dev)
+        rel = (pos[None, :] - pos[:, None]).float()
+        bias = natural[:, None, None] * rel
+        sdpa_kw = {"attn_mask": torch.where(rel <= 0, bias, float("-inf")).to(torch.bfloat16)[None]}
+        del bias, rel
+    else:
+        sdpa_kw = {"is_causal": True, "enable_gqa": True}
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
+    sdpa_fwd = time_fn(sdpa, iters=100)
+    sdpa_out = sdpa()
+    sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+                       iters=100)
+    form, suffix = ("ALiBi", "_alibi") if alibi else ("", "")
+    # the backend SDPA's dispatcher picks for these inputs
+    choice = int(torch._fused_sdp_choice(qt, kt, vt, **sdpa_kw))
+    backend = {int(b.value): name for name, b in SDPBackend.__members__.items()}.get(choice,
+                                                                                  str(choice))
+    timing[f"sdpa_backend{suffix}"] = backend
+    log(f"[time] SDPA{' ' + form if form else ''} runs its {backend} backend on these inputs")
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkv": None}
+    sources = {"flash_fwd": ("flash_attention_fwd.cu", 216),
+               "flash_bwd_dq": ("flash_attention_bwd_dq.cu", 364),
+               "flash_bwd_dkv": ("flash_attention_bwd_dkv.cu", 432)}
+    kernels = []
+    for name, (kernel_fn, plain_fn) in calls.items():
+        nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, name, alibi)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t = {"ms": time_fn(kernel_fn, iters=100), "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library[name]}
+        key = name + suffix
+        timing[f"{key}[{B},{S},{H},{kvH},{hd}]"] = t
+        lib_text = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"[time] {key} B {B} S {S} H {H} kvH {kvH} hd {hd} bf16: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, SDPA{' ' + form if form else ''} forward {lib_text}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.1f} GFLOP; {flops / t['ms'] / 1e9:.1f} TFLOP/s)")
+        src, line = sources[name]
+        entry = dict(name=key, route="cuda", source=f"deepspeed_tpu_torch/csrc/{src}",
+                     replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+                     launches=launches[key], max_abs_err=max_err[key],
+                     shape=f"q [{B}, {S}, {H}, {hd}], kv heads {kvH}, bf16",
+                     **{k2: t[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")})
+        if alibi:
+            entry["form"] = "ALiBi (_alibi_add, deepspeed_tpu/ops/pallas/flash_attention.py:158)"
+        kernels.append(entry)
+    if alibi:  # the form without ALiBi at the same shape: what the bias costs
+        for name, fn in (("flash_fwd", lambda: fa.flash_fwd(qs, k, v, None)),
+                         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta)),
+                         ("flash_bwd_dkv",
+                          lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta))):
+            with_bias = timing[f"{name}{suffix}[{B},{S},{H},{kvH},{hd}]"]["ms"]
+            without = time_fn(fn, iters=100)
+            timing[f"{name}[{B},{S},{H},{kvH},{hd}]"] = {"ms": without}
+            log(f"[time] {name} without ALiBi at the same shape: {without:.4f} ms; the ALiBi "
+                f"form {with_bias:.4f} ms ({100 * (with_bias / without - 1):+.1f} %)")
+    bwd_sum = sum(timing[f"{n}{suffix}[{B},{S},{H},{kvH},{hd}]"]["ms"]
+                  for n in ("flash_bwd_dq", "flash_bwd_dkv"))
+    timing[f"sdpa_backward_vs_dq_plus_dkv{suffix}"] = {"sdpa_bwd_ms": sdpa_bwd,
+                                                       "dq_plus_dkv_ms": bwd_sum}
+    log(f"[time] backward{' ' + form if form else ''}: SDPA's whole backward {sdpa_bwd:.4f} ms "
+        f"beside dq + dkv {bwd_sum:.4f} ms (delta, plain fp32, excluded)")
+    del q, k, v, do, qs, out, lse, delta, qt, kt, vt, dot, sdpa_out
+    torch.cuda.empty_cache()
+    return kernels
 
 
 def sparse_bytes_flops(B, H, kvH, S, D, itemsize, layout, block, kernel):
@@ -1493,60 +1640,10 @@ def phase_time(dev, checks, launches, max_err, results):
                                                  "library_ms")}))
     del x, q, s
 
-    # the flash kernels at the llama3-1b training shape, bf16, no keep-mask
-    shape = FLASH_SETS["llama3-1b"]
-    B, S, H, kvH, hd = (shape[k] for k in ("B", "S", "H", "kvH", "hd"))
-    q, k, v, do, _ = flash_inputs(dev, **shape)
-    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
-    qs = fa.prescale_q(q)
-    out, lse, delta, _, _, _ = run_flash_kernels(qs, k, v, do, None)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(qs, k, v, None),
-                      lambda: fa.flash_fwd_reference(qs, k, v, None)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta),
-                         lambda: fa.flash_bwd_dq_reference(qs, k, v, None, do, lse, delta)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta),
-                          lambda: fa.flash_bwd_dkv_reference(qs, k, v, None, do, lse, delta)),
-    }
-    # library yardstick (never called by the port): SDPA in its [B, H, S, hd]
-    # layout, forward alone and its whole backward
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-    sdpa_fwd = time_fn(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                              enable_gqa=True), iters=100)
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
-                       iters=100)
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkv": None}
-    sources = {"flash_fwd": ("flash_attention_fwd.cu", 216),
-               "flash_bwd_dq": ("flash_attention_bwd_dq.cu", 364),
-               "flash_bwd_dkv": ("flash_attention_bwd_dkv.cu", 432)}
-    for name, (kernel_fn, plain_fn) in calls.items():
-        nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, name)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        t = {"ms": time_fn(kernel_fn, iters=100), "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
-             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": library[name]}
-        timing[f"{name}[{B},{S},{H},{kvH},{hd}]"] = t
-        lib_text = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        log(f"[time] {name} B {B} S {S} H {H} kvH {kvH} hd {hd} bf16: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, SDPA forward {lib_text}, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; "
-            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s)")
-        src, line = sources[name]
-        kernels.append(dict(name=name, route="cuda", source=f"deepspeed_tpu_torch/csrc/{src}",
-                            replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
-                            launches=launches[name], max_abs_err=max_err[name],
-                            shape=f"q [{B}, {S}, {H}, {hd}], kv heads {kvH}, bf16",
-                            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                       "library_ms")}))
-    bwd_sum = timing[f"flash_bwd_dq[{B},{S},{H},{kvH},{hd}]"]["ms"] + \
-        timing[f"flash_bwd_dkv[{B},{S},{H},{kvH},{hd}]"]["ms"]
-    timing["sdpa_backward_vs_dq_plus_dkv"] = {"sdpa_bwd_ms": sdpa_bwd, "dq_plus_dkv_ms": bwd_sum}
-    log(f"[time] backward: SDPA's whole backward {sdpa_bwd:.4f} ms beside dq + dkv "
-        f"{bwd_sum:.4f} ms (delta, plain fp32, excluded)")
-    del q, k, v, do, qs, out, lse, delta, qt, kt, vt, dot, sdpa_out
-    torch.cuda.empty_cache()
+    # the flash kernels at the llama3-1b training shape, and their ALiBi form
+    # at Bloom-560M's, bf16, no keep-mask
+    kernels += time_flash(dev, launches, max_err, timing)
+    kernels += time_flash(dev, launches, max_err, timing, alibi=True)
     kernels += time_sparse(dev, launches, max_err, timing)
     results["timing"] = timing
     return kernels
@@ -1567,7 +1664,8 @@ def main(argv=None) -> int:
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
-               "paged_attention_alibi": 0.0, **{k: 0.0 for k in FLASH_KERNELS + SPARSE_KERNELS}}
+               "paged_attention_alibi": 0.0,
+               **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -1625,6 +1723,15 @@ def main(argv=None) -> int:
     if llama_launches is None:
         return 1
 
+    # ---- 4a. training Bloom-560M through the ALiBi form of the flash kernels
+    bloom = TransformerConfig(**BLOOM_560M, dtype=torch.bfloat16)
+    bloom_train_launches = phase_train(
+        dev, "train bloom-560m", bloom, micro=4, seq=2048, gas=2,
+        expect_per_micro={k: bloom.num_layers for k in FLASH_ALIBI_KERNELS},
+        results=results, profile=True, init=bloom_params)
+    if bloom_train_launches is None:
+        return 1
+
     # ---- 4b. the same preset with BigBird block-sparse attention at seq
     # 4096; then the same config through the dense flash kernels, a run of
     # its own whose launches are not summed below
@@ -1653,8 +1760,8 @@ def main(argv=None) -> int:
         f"{sp['peak_mem_gb']:.2f} GB vs {dn['peak_mem_gb']:.2f} GB")
 
     # ---- 5. whole-slice checks, kernels vs plain versions
-    for sparse_slice in (False, True):
-        if not phase_slice_check(dev, results, sparse=sparse_slice):
+    for kind in ("llama", "sparse", "bloom"):
+        if not phase_slice_check(dev, results, kind):
             log("[slice] FAILED: the kernels' micro-step disagrees with the plain versions'")
             return 1
         torch.cuda.empty_cache()
@@ -1670,9 +1777,9 @@ def main(argv=None) -> int:
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
     # over the counted runs of the paths (serving Llama bf16 and quantised,
-    # the stochastic quantiser's call, serving Bloom, the three trainings)
+    # the stochastic quantiser's call, serving Bloom, the four trainings)
     by_path = {"serve": serve_launches, **quant_launches, **bloom_launches,
-               "train llama3-1b": llama_launches,
+               "train llama3-1b": llama_launches, "train bloom-560m": bloom_train_launches,
                "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path

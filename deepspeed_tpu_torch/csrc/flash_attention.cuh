@@ -7,14 +7,29 @@
 //   ds_flash_fwd     <- _fwd_kernel     (pallas_call in _flash_fwd)
 //   ds_flash_bwd_dq  <- _bwd_dq_kernel  (first pallas_call in _flash_bwd)
 //   ds_flash_bwd_dkv <- _bwd_dkv_kernel (second pallas_call in _flash_bwd)
-// without ALiBi. Same math: q arrives pre-scaled by hd^-0.5 * log2(e) (in q's
-// dtype, by the caller), the softmax runs in base 2, the running max m, sum l
+// each with and without ALiBi (_alibi_add, called from _sub_score, which the
+// three Pallas kernels share). Same math: q arrives pre-scaled by
+// hd^-0.5 * log2(e) (in q's dtype, by the caller), the softmax runs in base
+// 2, the running max m, sum l
 // and accumulators are fp32; masked scores are finfo(float32).min; a row with
 // no visible key gets output 0 and lse = finfo(float32).min; kv head = h / G;
 // key j is visible to query i iff j <= i and keep[j] != 0 (keep is optional);
 // dS is cast to the operand dtype before its products, as P is; the dq sum is
 // multiplied by `scale` (hd^-0.5) and dk by `dk_scale` (ln 2) in fp32 before
 // the one cast to the output dtype.
+//
+// ALiBi (Bloom): with a non-null `slopes` (fp32 [H], already times log2(e),
+// as the JAX wrapper folds it) query head h's score of key j for query i
+// gets slope[h] * (j - i), on every tile and before the mask, so a masked
+// score is still exactly finfo(float32).min. JAX adds slope[h] * j: the same
+// softmax (slope[h] * i is one constant per query row), but at S 2048 the
+// absolute form reaches ~2,000, where an fp32 ulp (2.4e-4) is larger than
+// the check's tolerance, while j - i is 0 on the diagonal and small where
+// the weight is. The product and the sum are rounded separately (__fmul_rn,
+// __fadd_rn), as the plain version's two tensor ops round them. lse is then
+// the JAX kernel's less slope[h] * i; the backward kernels take that lse and
+// add the same bias, so the gradients are JAX's. The form is a template flag
+// (kAlibi), so the kernels without ALiBi carry no slope register or branch.
 //
 // What bounds it on an H100: operations. At the Llama-3.2-1B training shape
 // (B 4, S 2048, H 32, kvH 8, hd 64) the forward does 4*B*H*S^2*hd/2 = 68.7
@@ -152,6 +167,27 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[N / 8][4], const float* a
   }
 }
 
+// s += slope * d, the relative ALiBi bias of this warp's C-fragment tile: for
+// entry (n, c), d = base[c >> 1] + kSign * (n * 8 + (c & 1)) is the key's
+// position less the query's (base holds the caller's offsets of the lane's two
+// rows; kSign is +1 where columns are keys, -1 where they are queries). d is
+// formed in fp32 from two converted bases and compile-time constants, exact
+// for |d| < 2^24, so the loop has no int-to-float conversion (a quarter-rate
+// instruction on Hopper). Both roundings of slope * d + s are explicit, so
+// nvcc cannot contract them into an FMA.
+template <int N, int kSign>
+__device__ __forceinline__ void add_alibi(float (&s)[N / 8][4], float slope,
+                                          const int (&base)[2]) {
+  const float fb[2] = {static_cast<float>(base[0]), static_cast<float>(base[1])};
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float d = __fadd_rn(fb[c >> 1], static_cast<float>(kSign * (n * 8 + (c & 1))));
+      s[n][c] = __fadd_rn(s[n][c], __fmul_rn(slope, d));
+    }
+}
+
 // Rows [r0, r0 + R) of a strided [S, HD] source into dst[R][ld]; rows past S
 // are zeros.
 template <typename T, int R, int HD>
@@ -262,7 +298,8 @@ inline bool bad_shape(int B, int S, int H, int kvH) {
 }  // namespace ds_flash
 
 // dtype codes: 0 = fp32, 1 = bf16; hd must be 64 or 128; keep is an int32
-// [B, S] key keep-mask or NULL; q/k/v/dout [B, S, heads, hd] contiguous;
+// [B, S] key keep-mask or NULL; slopes is fp32 [H] (ALiBi slopes times
+// log2(e)) or NULL; q/k/v/dout [B, S, heads, hd] contiguous;
 // lse/delta fp32 [B, H, S]. Each returns cudaGetLastError() after its launch.
 #define DS_FLASH_DISPATCH(CALL)                                  \
   do {                                                           \

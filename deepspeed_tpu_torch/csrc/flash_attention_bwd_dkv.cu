@@ -1,7 +1,10 @@
 // ds_flash_bwd_dkv: dk and dv of causal GQA flash attention, summed over
 // the query heads of each kv head, written by hand for Hopper (sm_90a).
-// Replaces _bwd_dkv_kernel of deepspeed_tpu/ops/pallas/flash_attention.py.
-// Bound by operations (four products per query tile); design notes in
+// Replaces _bwd_dkv_kernel of deepspeed_tpu/ops/pallas/flash_attention.py,
+// with and without ALiBi. Here a warp's rows are keys and its columns
+// queries, so the bias is slope * (key - query) in that orientation, and the
+// slope is the query head's (h = kvh * G + gi of the loop over the group),
+// not the kv head's. Bound by operations (four products per query tile); design notes in
 // flash_attention.cuh.
 
 #include "flash_attention.cuh"
@@ -24,10 +27,11 @@ struct KvSmem {
   static constexpr size_t kBytes = kEnd * sizeof(T) + (2 * BQ + kRows) * sizeof(float);
 };
 
-template <typename T, int HD, int BQ>
+template <typename T, int HD, int BQ, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ keep, const T* __restrict__ dout,
+                     const int* __restrict__ keep, const float* __restrict__ slopes,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int S, int H, int kvH,
                      float dk_scale) {
@@ -65,6 +69,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int64_t q_off = static_cast<int64_t>(b) * S * q_stride + static_cast<int64_t>(h) * HD;
     const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * S;
     const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * S;
+    const float slope = kAlibi ? slopes[h] : 0.f;
     for (int qt = first_tile; qt < n_tiles; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
@@ -80,6 +85,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       // P^T = exp2(K Q^T - lse), one warp's 16 keys x BQ queries
       float p[BQ / 8][4] = {};
       warp_gemm<BQ, HD, false>(p, kw, L::kLd, q_s, L::kLd);
+      if constexpr (kAlibi) {  // every tile, before the mask; columns are queries
+        const int base[2] = {key[0] - q0 - 2 * t, key[1] - q0 - 2 * t};
+        add_alibi<BQ, -1>(p, slope, base);
+      }
       const bool masked = keep_b != nullptr || q0 < k0 + kRows - 1 || q0 + BQ > S;
 #pragma unroll
       for (int n = 0; n < BQ / 8; ++n)
@@ -121,19 +130,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 template <typename T, int HD>
-int launch_dkv(const void* q, const void* k, const void* v, const void* keep, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-               int kvH, float dk_scale, cudaStream_t stream) {
+int launch_dkv(const void* q, const void* k, const void* v, const void* keep, const void* slopes,
+               const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
+               int S, int H, int kvH, float dk_scale, cudaStream_t stream) {
   // a smaller query tile at hd 128 keeps dk and dv (2 x 64 fp32 per thread)
   // and the two score fragments within the register file
   constexpr int BQ = HD == 128 ? 32 : 64;
   constexpr size_t kBytes = KvSmem<T, HD, BQ>::kBytes;
-  const cudaError_t err = set_smem(flash_bwd_dkv_kernel<T, HD, BQ>, kBytes);
+  const auto kernel = slopes != nullptr ? flash_bwd_dkv_kernel<T, HD, BQ, true>
+                                         : flash_bwd_dkv_kernel<T, HD, BQ, false>;
+  const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, kvH, B);
-  flash_bwd_dkv_kernel<T, HD, BQ><<<grid, kThreads, kBytes, stream>>>(
+  kernel<<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(keep), static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const int*>(keep), static_cast<const float*>(slopes),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), S, H, kvH,
       dk_scale);
   return static_cast<int>(cudaGetLastError());
@@ -143,13 +155,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* keep, co
 
 // See flash_attention.cuh for the dtype codes and layouts.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* keep,
-                                const void* dout, const void* lse, const void* delta, void* dk,
-                                void* dv, int B, int S, int H, int kvH, int hd, float dk_scale,
-                                int dtype, void* stream) {
+                                const void* slopes, const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int B, int S, int H,
+                                int kvH, int hd, float dk_scale, int dtype, void* stream) {
   if (bad_shape(B, S, H, kvH)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_CALL(T, HD) \
-  launch_dkv<T, HD>(q, k, v, keep, dout, lse, delta, dk, dv, B, S, H, kvH, dk_scale, s)
+  launch_dkv<T, HD>(q, k, v, keep, slopes, dout, lse, delta, dk, dv, B, S, H, kvH, dk_scale, s)
   DS_FLASH_DISPATCH(DS_CALL);
 #undef DS_CALL
 }

@@ -1,7 +1,8 @@
 // ds_flash_bwd_dq: dq of causal GQA flash attention, written by hand for
 // Hopper (sm_90a). Replaces _bwd_dq_kernel of
-// deepspeed_tpu/ops/pallas/flash_attention.py. Bound by operations (three
-// products per key tile); design notes in flash_attention.cuh.
+// deepspeed_tpu/ops/pallas/flash_attention.py, with and without ALiBi. Bound
+// by operations (three products per key tile); design notes in
+// flash_attention.cuh.
 
 #include "flash_attention.cuh"
 
@@ -10,10 +11,11 @@ using namespace ds_flash;
 namespace {
 
 // ---------------------------------------------------------------- dq
-template <typename T, int HD>
+template <typename T, int HD, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ keep, const T* __restrict__ dout,
+                    const int* __restrict__ keep, const float* __restrict__ slopes,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int S, int H, int kvH, float scale) {
   using L = QTileSmem<T, HD, true>;
@@ -50,6 +52,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* dow = do_s + warp * 16 * L::kLd;
   T* dsw = ds_s + warp * 16 * L::kLdK;
   float acc[HD / 8][4] = {};
+  const float slope = kAlibi ? slopes[h] : 0.f;
 
   const int n_tiles = (min(q0 + kRows, S) - 1) / kKeys + 1;
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -62,6 +65,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
     float p[kKeys / 8][4] = {};
     warp_gemm<kKeys, HD, false>(p, qw, L::kLd, k_s, L::kLd);
+    if constexpr (kAlibi) {  // every tile, before the mask
+      const int base[2] = {k0 + 2 * t - row[0], k0 + 2 * t - row[1]};
+      add_alibi<kKeys, 1>(p, slope, base);
+    }
     const bool masked = keep_b != nullptr || k0 + kKeys - 1 > q0 || k0 + kKeys > S;
 #pragma unroll
     for (int n = 0; n < kKeys / 8; ++n)
@@ -91,16 +98,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* keep, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int S, int H, int kvH,
-              float scale, cudaStream_t stream) {
+int launch_dq(const void* q, const void* k, const void* v, const void* keep, const void* slopes,
+              const void* dout, const void* lse, const void* delta, void* dq, int B, int S,
+              int H, int kvH, float scale, cudaStream_t stream) {
   constexpr size_t kBytes = QTileSmem<T, HD, true>::kBytes;
-  const cudaError_t err = set_smem(flash_bwd_dq_kernel<T, HD>, kBytes);
+  const auto kernel =
+      slopes != nullptr ? flash_bwd_dq_kernel<T, HD, true> : flash_bwd_dq_kernel<T, HD, false>;
+  const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, kBytes, stream>>>(
+  kernel<<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(keep), static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const int*>(keep), static_cast<const float*>(slopes),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), S, H, kvH, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -109,13 +119,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* keep, con
 
 // See flash_attention.cuh for the dtype codes and layouts.
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* keep,
-                               const void* dout, const void* lse, const void* delta, void* dq,
-                               int B, int S, int H, int kvH, int hd, float scale, int dtype,
-                               void* stream) {
+                               const void* slopes, const void* dout, const void* lse,
+                               const void* delta, void* dq, int B, int S, int H, int kvH, int hd,
+                               float scale, int dtype, void* stream) {
   if (bad_shape(B, S, H, kvH)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DS_CALL(T, HD) \
-  launch_dq<T, HD>(q, k, v, keep, dout, lse, delta, dq, B, S, H, kvH, scale, s)
+  launch_dq<T, HD>(q, k, v, keep, slopes, dout, lse, delta, dq, B, S, H, kvH, scale, s)
   DS_FLASH_DISPATCH(DS_CALL);
 #undef DS_CALL
 }

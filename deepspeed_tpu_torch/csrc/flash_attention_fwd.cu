@@ -1,6 +1,7 @@
 // ds_flash_fwd: causal GQA flash-attention forward, written by hand for
 // Hopper (sm_90a). Replaces _fwd_kernel of
-// deepspeed_tpu/ops/pallas/flash_attention.py. What bounds it (operations,
+// deepspeed_tpu/ops/pallas/flash_attention.py, with and without ALiBi (the
+// kAlibi form adds _alibi_add's bias in its relative form). What bounds it (operations,
 // ~1400 flops per byte at the Llama-3.2-1B training shape) and the design
 // (64-row query tiles, 4 warps, mma.sync bf16 with fp32 accumulation, a key
 // loop that stops at the diagonal) are in flash_attention.cuh.
@@ -12,11 +13,11 @@ using namespace ds_flash;
 namespace {
 
 // ---------------------------------------------------------------- forward
-template <typename T, int HD>
+template <typename T, int HD, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ keep, T* __restrict__ out, float* __restrict__ lse,
-                 int S, int H, int kvH) {
+                 const int* __restrict__ keep, const float* __restrict__ slopes,
+                 T* __restrict__ out, float* __restrict__ lse, int S, int H, int kvH) {
   using L = QTileSmem<T, HD, false>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -41,6 +42,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float o[HD / 8][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float slope = kAlibi ? slopes[h] : 0.f;
 
   const int n_tiles = (min(q0 + kRows, S) - 1) / kKeys + 1;
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -53,6 +55,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     float s[kKeys / 8][4] = {};
     warp_gemm<kKeys, HD, false>(s, qw, L::kLd, k_s, L::kLd);
+    if constexpr (kAlibi) {  // every tile, before the mask
+      const int base[2] = {k0 + 2 * t - row[0], k0 + 2 * t - row[1]};
+      add_alibi<kKeys, 1>(s, slope, base);
+    }
     if (keep_b != nullptr || k0 + kKeys - 1 > q0 || k0 + kKeys > S) {
 #pragma unroll
       for (int n = 0; n < kKeys / 8; ++n)
@@ -109,15 +115,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int HD>
-int launch_fwd(const void* q, const void* k, const void* v, const void* keep, void* out,
-               void* lse, int B, int S, int H, int kvH, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const void* keep, const void* slopes,
+               void* out, void* lse, int B, int S, int H, int kvH, cudaStream_t stream) {
   constexpr size_t kBytes = QTileSmem<T, HD, false>::kBytes;
-  const cudaError_t err = set_smem(flash_fwd_kernel<T, HD>, kBytes);
+  const auto kernel =
+      slopes != nullptr ? flash_fwd_kernel<T, HD, true> : flash_fwd_kernel<T, HD, false>;
+  const cudaError_t err = set_smem(kernel, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, kBytes, stream>>>(
+  kernel<<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(keep), static_cast<T*>(out), static_cast<float*>(lse), S, H, kvH);
+      static_cast<const int*>(keep), static_cast<const float*>(slopes), static_cast<T*>(out),
+      static_cast<float*>(lse), S, H, kvH);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -125,11 +134,11 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* keep, vo
 
 // See flash_attention.cuh for the dtype codes and layouts.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const void* keep,
-                            void* out, void* lse, int B, int S, int H, int kvH, int hd,
-                            int dtype, void* stream) {
+                            const void* slopes, void* out, void* lse, int B, int S, int H,
+                            int kvH, int hd, int dtype, void* stream) {
   if (bad_shape(B, S, H, kvH)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DS_CALL(T, HD) launch_fwd<T, HD>(q, k, v, keep, out, lse, B, S, H, kvH, s)
+#define DS_CALL(T, HD) launch_fwd<T, HD>(q, k, v, keep, slopes, out, lse, B, S, H, kvH, s)
   DS_FLASH_DISPATCH(DS_CALL);
 #undef DS_CALL
 }

@@ -6,8 +6,10 @@ half-split RoPE, SiLU-GLU MLP, GQA, untied head, no biases) and GPT-2-style
 (LayerNorm, learned positions, GELU MLP, tied embeddings, biases), trained
 with flash or block-sparse attention (``attn_impl="sparse"``), and the Bloom
 form (LayerNorm, ALiBi, GELU MLP, biases, tied head, a LayerNorm after the
-embedding), which only the serving forward carries: ``CausalLM`` refuses
-``position="alibi"`` and ``embed_norm``. ``TransformerConfig`` keeps the JAX
+embedding), which both the serving forward and ``CausalLM`` carry, the latter
+through the ALiBi form of the flash kernels. ALiBi with
+``attn_impl="sparse"`` (which JAX routes to its dense masked path) is refused
+by name. ``TransformerConfig`` keeps the JAX
 package's field names and defaults; a setting outside those families (MoE,
 parallel blocks, partial or interleaved rotary, an LM-head bias, remat,
 dropout) raises ``NotImplementedError`` at construction instead of being
@@ -26,9 +28,10 @@ layers stacked ``[L, ...]``: ``embed.embedding [V, E]``, ``pos_embed [T, E]``
 [E]`` (``embed_norm``).
 
 ``CausalLM`` is the training forward (``CausalLM.__call__`` of the JAX
-package): embedding, learned positions, pre-norm blocks with flash or
-block-sparse attention, final norm, then the fused chunked cross entropy or the
-logits and ``cross_entropy_loss``.
+package): embedding, its LayerNorm (``embed_norm``), learned positions,
+pre-norm blocks with flash (with ALiBi slopes for ``position="alibi"``) or
+block-sparse attention, final norm, then the fused chunked cross entropy or
+the logits and ``cross_entropy_loss``.
 """
 
 from __future__ import annotations
@@ -84,9 +87,9 @@ class TransformerConfig:
     lm_head_bias: bool = False
     parallel_block: bool = False
     parallel_mlp_norm: bool = False
-    position: str = "rope"  # rope | learned | alibi (serving only)
+    position: str = "rope"  # rope | learned | alibi
     rope_theta: float = 500000.0
-    embed_norm: bool = False  # serving only
+    embed_norm: bool = False
     rotary_dim: Optional[int] = None
     rope_interleaved: bool = False
     norm_eps: float = 1e-5
@@ -417,11 +420,10 @@ class CausalLM(torch.nn.Module):
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
-        for name, value in (("position", "alibi"), ("embed_norm", True)):
-            if getattr(config, name) == value:
-                raise NotImplementedError(
-                    f"TransformerConfig.{name}={value!r}: the PyTorch port serves the Bloom form "
-                    "but does not train it (the ALiBi flash kernels are not ported)")
+        if config.position == "alibi" and config.attn_impl == "sparse":
+            raise NotImplementedError(
+                "TransformerConfig.position='alibi' with attn_impl='sparse' is not ported to "
+                "PyTorch (the JAX package routes it to its dense masked path)")
         self.config = config
 
     def _attention(self, p: Dict[str, Any], x: torch.Tensor, mask, positions) -> torch.Tensor:
@@ -438,7 +440,8 @@ class CausalLM(torch.nn.Module):
             # the kernels; a key padding mask takes the dense path, as in JAX
             out = block_sparse_attention(q, k, v, layout, block=block, pad_mask=mask, lists=lists)
         else:
-            out = causal_attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+            slopes = alibi_slopes(cfg.num_heads, q.device) if cfg.position == "alibi" else None
+            out = causal_attention(q, k, v, mask=mask, impl=cfg.attn_impl, alibi_slopes=slopes,
                                    **dict(cfg.attn_kwargs or ()))
         wo = p["wo"]["kernel"].to(cfg.dtype)  # [H, hd, E]
         H, hd, E = wo.shape
@@ -465,6 +468,8 @@ class CausalLM(torch.nn.Module):
 
         embed = params["embed"]["embedding"]
         x = F.embedding(ids, embed.to(cfg.dtype))
+        if cfg.embed_norm:
+            x = _apply_norm(params["embed_norm"], cfg, x)
         if cfg.position == "learned":
             x = x + params["pos_embed"][:S].to(cfg.dtype)[None]
         for lp in layer_params(params, cfg.num_layers):

@@ -3,9 +3,12 @@
 
 Three kernels, each with its plain PyTorch version beside it:
 
-- ``flash_fwd(qs, k, v, keep) -> (out, lse)`` replaces ``_fwd_kernel``;
+- ``flash_fwd(qs, k, v, keep, slopes) -> (out, lse)`` replaces ``_fwd_kernel``;
 - ``flash_bwd_dq(...) -> dq`` replaces ``_bwd_dq_kernel``;
-- ``flash_bwd_dkv(...) -> (dk, dv)`` replaces ``_bwd_dkv_kernel``.
+- ``flash_bwd_dkv(...) -> (dk, dv)`` replaces ``_bwd_dkv_kernel``;
+
+each with and without ALiBi (``_alibi_add``, which ``_sub_score`` of the
+three Pallas kernels calls).
 
 Each wrapper runs its plain version (``*_reference``) on a CPU tensor and on
 a CUDA tensor launches its hand-written kernel
@@ -20,7 +23,17 @@ them together in a ``torch.autograd.Function`` with the bookkeeping of the JAX p
 - the dq kernel multiplies its fp32 sum by ``hd**-0.5`` (the exact scale,
   no ``log2e * ln2`` rounding), the dkv kernel multiplies dk by ``ln 2`` in
   fp32, both before the cast to the input dtype;
-- dk and dv are summed over the G query heads of a kv head (``h // G``).
+- dk and dv are summed over the G query heads of a kv head (``h // G``);
+- ALiBi: ``slopes`` (fp32 ``[H]``) arrive times ``log2(e)``, as the JAX
+  wrapper folds them, and are constants (no gradient, as JAX's
+  ``stop_gradient``). Query head h's score of key j for query i gets
+  ``slope[h] * (j - i)`` (fp32 product, then the sum) before the mask. JAX
+  adds ``slope[h] * j``: the same softmax, since ``slope[h] * i`` is one
+  constant per row, but the absolute form reaches ~2,000 at S 2048, where an
+  fp32 ulp is 2.4e-4. ``lse`` is then JAX's less ``slope[h] * i``; the
+  backward pieces take that lse and the same bias, so gradients are JAX's.
+  An ALiBi launch counts in ``<wrapper>.alibi_launches``, any other in
+  ``<wrapper>.launches``.
 
 Layouts are the JAX package's ``[B, S, H, hd]`` (q) and ``[B, S, kvH, hd]``
 (k, v); ``keep`` is an optional ``[B, S]`` key keep-mask (1 = keep), applied
@@ -54,11 +67,17 @@ def _grouped(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return x.float().reshape(B, S, kv_heads, H // kv_heads, d)
 
 
-def _scores(qs: torch.Tensor, k: torch.Tensor, keep: Optional[torch.Tensor]):
+def _scores(qs: torch.Tensor, k: torch.Tensor, keep: Optional[torch.Tensor],
+            slopes: Optional[torch.Tensor] = None):
     """Masked base-2 scores, fp32 ``[B, kvH, G, S, S]`` (NEG_INF where a key
-    is not visible), and the visibility mask."""
+    is not visible), and the visibility mask. With ``slopes`` (fp32 ``[H]``,
+    times log2(e)) each score first gets ``slope[h] * (j - i)``."""
     S, kvH = qs.shape[1], k.shape[2]
     s = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(qs, kvH), k.float())
+    if slopes is not None:
+        pos = torch.arange(S, device=qs.device)
+        rel = (pos[None, :] - pos[:, None]).float()  # [query i, key j]: j - i
+        s = s + slopes.float().reshape(kvH, -1)[None, :, :, None, None] * rel
     ok = torch.ones(S, S, dtype=torch.bool, device=qs.device).tril()[None, None, None]
     if keep is not None:
         ok = ok & (keep[:, None, None, None, :] > 0)
@@ -73,11 +92,11 @@ def _probs(s: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     return torch.exp2(s - torch.where(lse == NEG_INF, torch.zeros_like(lse), lse))
 
 
-def flash_fwd_reference(qs, k, v, keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_reference(qs, k, v, keep=None, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: scores materialised in fp32.
     Returns ``(out [B, S, H, hd] in qs.dtype, lse [B, H, S] fp32)``."""
     B, S, H, hd = qs.shape
-    s, _ = _scores(qs, k, keep)
+    s, _ = _scores(qs, k, keep, slopes)
     m = s.amax(-1, keepdim=True)
     p = torch.exp2(s - torch.where(m == NEG_INF, torch.zeros_like(m), m))
     l = p.sum(-1, keepdim=True)
@@ -88,12 +107,12 @@ def flash_fwd_reference(qs, k, v, keep=None) -> Tuple[torch.Tensor, torch.Tensor
     return out.reshape(B, S, H, hd).to(qs.dtype), lse.reshape(B, H, S)
 
 
-def flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta) -> torch.Tensor:
+def flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
     """Plain version of the dq kernel: ``dq = (ds @ k) * hd**-0.5`` with
     ``ds = p * (dO V^T - delta)`` cast to k's dtype before the product."""
     B, S, H, hd = qs.shape
     kvH = k.shape[2]
-    s, _ = _scores(qs, k, keep)
+    s, _ = _scores(qs, k, keep, slopes)
     p = _probs(s, lse)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(do, kvH), v.float())
     ds = p * (dp - delta.reshape(B, kvH, H // kvH, S, 1))
@@ -101,13 +120,14 @@ def flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta) -> torch.Tensor:
     return (dq.reshape(B, S, H, hd) * hd ** -0.5).to(qs.dtype)
 
 
-def flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta,
+                            slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dkv kernel: per query head ``dv = p^T dO`` and
     ``dk = ds^T qs`` (p and ds cast to dO's and q's dtype), summed over the
     G heads of a kv head; dk times ln 2 in fp32."""
     B, S, H, hd = qs.shape
     kvH = k.shape[2]
-    s, _ = _scores(qs, k, keep)
+    s, _ = _scores(qs, k, keep, slopes)
     p = _probs(s, lse)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), _grouped(do, kvH))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(do, kvH), v.float())
@@ -117,6 +137,21 @@ def flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta) -> Tuple[torch.Tenso
 
 
 # ------------------------------------------------------------ kernel wrappers
+def _check_slopes(qs, slopes) -> None:
+    """ALiBi slopes, where given, are fp32 ``[H]``, contiguous, on q's device
+    (checked on every device: the plain version would broadcast bad ones)."""
+    if slopes is None:
+        return
+    H = qs.shape[2]
+    if slopes.dtype != torch.float32 or tuple(slopes.shape) != (H,):
+        raise ValueError(f"flash attention: slopes must be fp32 [{H}], got "
+                         f"{slopes.dtype} {list(slopes.shape)}")
+    if slopes.device != qs.device:
+        raise ValueError(f"flash attention: slopes on {slopes.device}, q on {qs.device}")
+    if not slopes.is_contiguous():
+        raise ValueError("flash attention: slopes must be contiguous")
+
+
 def _check(qs, k, v, keep, *more):
     if qs.device.type != "cuda":
         raise ValueError(f"flash attention: unsupported device {qs.device}")
@@ -159,57 +194,69 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd(qs, k, v, keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _count(wrapper, slopes) -> None:
+    """One launch of ``wrapper``'s kernel: an ALiBi launch counts in
+    ``wrapper.alibi_launches``, any other in ``wrapper.launches``."""
+    if slopes is not None:
+        wrapper.alibi_launches += 1
+    else:
+        wrapper.launches += 1
+
+
+def flash_fwd(qs, k, v, keep=None, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on pre-scaled ``qs``: ``(out [B, S, H, hd], lse [B, H, S] fp32)``."""
+    _check_slopes(qs, slopes)
     if qs.device.type == "cpu":
-        return flash_fwd_reference(qs, k, v, keep)
+        return flash_fwd_reference(qs, k, v, keep, slopes)
     _check(qs, k, v, keep)
     B, S, H, hd = qs.shape
     out = torch.empty_like(qs)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=qs.device)
     op_builder.launch("flash_attention_fwd", "ds_flash_fwd", qs.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), _ptr(keep), out.data_ptr(), lse.data_ptr(), B, S, H,
-                      k.shape[2], hd, op_builder.DTYPE_CODES[qs.dtype],
+                      v.data_ptr(), _ptr(keep), _ptr(slopes), out.data_ptr(), lse.data_ptr(),
+                      B, S, H, k.shape[2], hd, op_builder.DTYPE_CODES[qs.dtype],
                       torch.cuda.current_stream(qs.device).cuda_stream)
-    flash_fwd.launches += 1
+    _count(flash_fwd, slopes)
     return out, lse
 
 
-def flash_bwd_dq(qs, k, v, keep, do, lse, delta) -> torch.Tensor:
+def flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
     """dq (already times ``hd**-0.5``, in q's dtype)."""
+    _check_slopes(qs, slopes)
     if qs.device.type == "cpu":
-        return flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta)
+        return flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes)
     _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
     B, S, H, hd = qs.shape
     dq = torch.empty_like(qs)
     op_builder.launch("flash_attention_bwd_dq", "ds_flash_bwd_dq", qs.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dq.data_ptr(), B, S, H, k.shape[2], hd, ctypes.c_float(hd ** -0.5),
-                      op_builder.DTYPE_CODES[qs.dtype],
+                      v.data_ptr(), _ptr(keep), _ptr(slopes), do.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], hd,
+                      ctypes.c_float(hd ** -0.5), op_builder.DTYPE_CODES[qs.dtype],
                       torch.cuda.current_stream(qs.device).cuda_stream)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, slopes)
     return dq
 
 
-def flash_bwd_dkv(qs, k, v, keep, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk times ln 2, dv), summed over each kv head's G query heads."""
+    _check_slopes(qs, slopes)
     if qs.device.type == "cpu":
-        return flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta)
+        return flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta, slopes)
     _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
     B, S, H, hd = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     op_builder.launch("flash_attention_bwd_dkv", "ds_flash_bwd_dkv", qs.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), _ptr(keep), do.data_ptr(), lse.data_ptr(),
-                      delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                      ctypes.c_float(_LN2), op_builder.DTYPE_CODES[qs.dtype],
+                      k.data_ptr(), v.data_ptr(), _ptr(keep), _ptr(slopes), do.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H,
+                      k.shape[2], hd, ctypes.c_float(_LN2), op_builder.DTYPE_CODES[qs.dtype],
                       torch.cuda.current_stream(qs.device).cuda_stream)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, slopes)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+for _wrapper in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.alibi_launches = 0
 
 
 # ------------------------------------------------------------ autograd
@@ -220,6 +267,12 @@ def prescale_q(q: torch.Tensor) -> torch.Tensor:
     return q * scale
 
 
+def alibi_log2(alibi_slopes: torch.Tensor) -> torch.Tensor:
+    """ALiBi slopes as the kernels take them: detached (constants, as JAX's
+    ``stop_gradient``), times ``log2(e)`` in fp32, contiguous."""
+    return (alibi_slopes.detach().float() * _LOG2E).contiguous()
+
+
 def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """``rowsum(dO * O)`` in fp32, ``[B, S, H, hd] -> [B, H, S]``."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -227,21 +280,21 @@ def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, keep):
+    def forward(ctx, q, k, v, keep, slopes):
         qs = prescale_q(q).contiguous()
         k, v = k.contiguous(), v.contiguous()
-        out, lse = flash_fwd(qs, k, v, keep)
-        ctx.save_for_backward(qs, k, v, keep, out, lse)
+        out, lse = flash_fwd(qs, k, v, keep, slopes)
+        ctx.save_for_backward(qs, k, v, keep, slopes, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qs, k, v, keep, out, lse = ctx.saved_tensors
+        qs, k, v, keep, slopes, out, lse = ctx.saved_tensors
         do = g.to(qs.dtype).contiguous()
         delta = flash_delta(do, out)
-        dq = flash_bwd_dq(qs, k, v, keep, do, lse, delta)
-        dk, dv = flash_bwd_dkv(qs, k, v, keep, do, lse, delta)
-        return dq, dk, dv, None
+        dq = flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes)
+        dk, dv = flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes)
+        return dq, dk, dv, None, None
 
 
 def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -249,19 +302,19 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            alibi_slopes: Optional[torch.Tensor] = None,
                            **kernel_kwargs) -> torch.Tensor:
     """Causal GQA attention of q ``[B, S, H, hd]`` over k, v ``[B, S, kvH, hd]``
-    with an optional key keep-mask ``[B, S]`` (1 = keep). Differentiable in
-    q, k and v; returns ``[B, S, H, hd]`` in q's dtype."""
+    with an optional key keep-mask ``[B, S]`` (1 = keep) and optional ALiBi
+    slopes ``[H]`` (Bloom's; constants, no gradient). Differentiable in q, k
+    and v; returns ``[B, S, H, hd]`` in q's dtype."""
     unknown = sorted(set(kernel_kwargs) - set(_SCHEDULING_KWARGS))
     if unknown:
         raise TypeError(f"flash_causal_attention: unexpected keyword arguments {unknown}")
-    if alibi_slopes is not None:
-        raise NotImplementedError("flash_causal_attention: ALiBi is not ported to PyTorch")
     keep = None if mask is None else (mask > 0).to(torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, keep)
+    slopes = None if alibi_slopes is None else alibi_log2(alibi_slopes)
+    return _FlashAttention.apply(q, k, v, keep, slopes)
 
 
 __all__ = [
-    "NEG_INF", "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
+    "NEG_INF", "alibi_log2", "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
     "flash_bwd_dq_reference", "flash_causal_attention", "flash_delta", "flash_fwd",
     "flash_fwd_reference", "prescale_q",
 ]

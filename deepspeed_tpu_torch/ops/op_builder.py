@@ -70,16 +70,18 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_dequantize_int8": [_P, _P, _I64, _I, _I, _P, _P],
     },
     "flash_attention_fwd": {
-        # q, k, v, keep (or NULL), out, lse, B, S, H, kvH, hd, dtype, stream
-        "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, k, v, keep (or NULL), slopes (or NULL), out, lse, B, S, H, kvH, hd, dtype, stream
+        "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention_bwd_dq": {
-        # q, k, v, keep, dout, lse, delta, dq, B, S, H, kvH, hd, scale, dtype, stream
-        "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, keep, slopes, dout, lse, delta, dq, B, S, H, kvH, hd, scale, dtype, stream
+        "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_attention_bwd_dkv": {
-        # q, k, v, keep, dout, lse, delta, dk, dv, B, S, H, kvH, hd, dk_scale, dtype, stream
-        "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # q, k, v, keep, slopes, dout, lse, delta, dk, dv, B, S, H, kvH, hd, dk_scale,
+        # dtype, stream
+        "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "sparse_attention_fwd": {

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops import block_sparse as bs
+from deepspeed_tpu_torch.ops import flash_attention as fa
 
 
 def row_rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -36,6 +37,46 @@ def flash_inputs(dev, B, S, H, kvH, hd, keep_lens=None, seed=0):
         keep = torch.from_numpy(
             (np.arange(S)[None, :] < np.asarray(keep_lens)[:, None]).astype(np.int32)).to(dev)
     return q, k, v, do, keep
+
+
+def check_flash_kernels(q, k, v, do, keep=None, slopes=None):
+    """The three flash kernels against their plain versions on the same
+    inputs (``flash_inputs``'s, q unscaled; ``slopes`` fp32 ``[H]`` times
+    log2(e) for the ALiBi form; the plain dq and dkv take the kernel's lse and
+    delta, so each kernel is held alone). Returns ``({name: (row rel L2, max
+    abs)}`` for out, dq, dk, dv; the lse's largest error over rows with a
+    visible key, absolute and as a share of ``max(|lse|, 10)``; whether every
+    row with none has output 0, dq 0 and the lse sentinel, and every key the
+    keep-mask drops dk and dv 0)``."""
+    qs = fa.prescale_q(q)
+    out, lse = fa.flash_fwd(qs, k, v, keep, slopes)
+    delta = fa.flash_delta(do, out)
+    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes)
+    if q.is_cuda:
+        torch.cuda.synchronize(q.device)
+    want_out, want_lse = fa.flash_fwd_reference(qs, k, v, keep, slopes)
+    want_dq = fa.flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes)
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta, slopes)
+    readings = {}
+    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        ok = bool(torch.isfinite(got).all()) and got.dtype == q.dtype and got.shape == want.shape
+        readings[name] = (row_rel_l2(got, want) if ok else float("inf"),
+                          float((got.float() - want.float()).abs().max()))
+    B, S = q.shape[:2]
+    # a query row sees a key iff some key j <= i is kept
+    kept = torch.ones(B, S, dtype=torch.int32, device=q.device) if keep is None else keep
+    live = kept.cumsum(1) > 0  # [B, S]
+    err = (lse - want_lse).abs().transpose(1, 2)[live]
+    scale = want_lse.abs().clamp_min(10.0).transpose(1, 2)[live]
+    lse_abs = float(err.max()) if err.numel() else 0.0
+    lse_rel = float((err / scale).max()) if err.numel() else 0.0
+    dead, dropped = ~live, kept == 0
+    dead_exact = (bool((out[dead] == 0).all()) and bool((dq[dead] == 0).all())
+                  and bool((lse.transpose(1, 2)[dead] == fa.NEG_INF).all())
+                  and bool((dk[dropped] == 0).all()) and bool((dv[dropped] == 0).all()))
+    return readings, lse_abs, lse_rel, dead_exact
 
 
 def check_sparse_kernels(q, k, v, do, layout, block, causal):

@@ -10,6 +10,13 @@ and each plain piece to the JAX kernels' own values: ``lse`` of
 ``hd**-0.5`` and ``ln 2`` applied. Cases: S 64 and 100 (not a multiple of
 the 32-row blocks), MHA and G = 4, hd 16 and 32, with and without a
 right-padding keep-mask. fp32, tolerance 1e-5 (the order of sums differs).
+
+ALiBi (Bloom's slopes for 4 heads): the same comparisons with
+``alibi_slopes``, against JAX's kernels run with ``alibi=True`` and its XLA
+path, at S 64 and 100, kv heads 4 and 1, with and without the keep-mask, and
+left-padded. The port adds ``slope * log2(e) * (j - i)`` where JAX adds
+``slope * log2(e) * j``: the same softmax, so outputs and gradients agree,
+and the port's lse plus ``slope * log2(e) * i`` is JAX's.
 """
 
 import jax
@@ -21,6 +28,7 @@ import torch
 import deepspeed_tpu.ops as jops
 from deepspeed_tpu.ops.attention import _xla_causal_attention
 from deepspeed_tpu.ops.pallas import flash_attention as jfa
+from deepspeed_tpu.models.transformer import alibi_slopes as jax_alibi_slopes
 from deepspeed_tpu.ops.pallas import register_all
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops.attention import causal_attention
@@ -44,9 +52,15 @@ def _inputs(S, kvH, hd, masked, B=2, H=4, seed=0):
     return q, k, v, do, mask
 
 
-def _port(q, k, v, do, mask):
+def _slopes(alibi, H=4):
+    """Bloom's ALiBi slopes for H heads (numpy fp32), or None."""
+    return np.array(jax_alibi_slopes(H)) if alibi else None
+
+
+def _port(q, k, v, do, mask, slopes=None):
     qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
     out = causal_attention(qt, kt, vt, mask=None if mask is None else torch.from_numpy(mask),
+                           alibi_slopes=None if slopes is None else torch.from_numpy(slopes),
                            block_q=BLOCK, block_k=BLOCK)
     out.backward(torch.from_numpy(do))
     return [out.detach().numpy()] + [t.grad.numpy() for t in (qt, kt, vt)]
@@ -59,66 +73,99 @@ def _jax(fn, q, k, v, do, mask):
     return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
 
+def _jax_flash(q, k, v, do, mask, slopes=None):
+    """JAX's flash path (Pallas kernels in interpret mode), with ALiBi slopes
+    where given."""
+    pallas = jops.dispatch("causal_attention", "pallas")
+    extra = {} if slopes is None else {"alibi_slopes": jnp.asarray(slopes)}
+    return _jax(lambda a, b, c, m: pallas(a, b, c, mask=m, block_q=BLOCK, block_k=BLOCK, **extra),
+                q, k, v, do, mask)
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * max(1.0, float(np.abs(want).max())))
 
 
 CASES = [(S, kvH, hd, masked) for S in (64, 100) for kvH in (4, 1) for hd in (16, 32)
          for masked in (False, True)]
+ALIBI_CASES = [(S, kvH, 16, masked) for S in (64, 100) for kvH in (4, 1)
+               for masked in (False, True)]
 
 
-@pytest.mark.parametrize("S,kvH,hd,masked", CASES)
-def test_flash_matches_jax_flash_and_xla(S, kvH, hd, masked):
+@pytest.mark.parametrize("S,kvH,hd,masked,alibi", [
+    pytest.param(*c, False, id="-".join(map(str, c))) for c in CASES] + [
+    pytest.param(*c, True, id="alibi-" + "-".join(map(str, c))) for c in ALIBI_CASES])
+def test_flash_matches_jax_flash_and_xla(S, kvH, hd, masked, alibi):
     q, k, v, do, mask = _inputs(S, kvH, hd, masked)
-    got = _port(q, k, v, do, mask)
-    pallas = jops.dispatch("causal_attention", "pallas")
-    want_flash = _jax(lambda a, b, c, m: pallas(a, b, c, mask=m, block_q=BLOCK, block_k=BLOCK),
-                      q, k, v, do, mask)
-    want_xla = _jax(lambda a, b, c, m: _xla_causal_attention(a, b, c, mask=m), q, k, v, do, mask)
+    slopes = _slopes(alibi)
+    got = _port(q, k, v, do, mask, slopes)
+    want_flash = _jax_flash(q, k, v, do, mask, slopes)
+    extra = {} if slopes is None else {"alibi_slopes": jnp.asarray(slopes)}
+    want_xla = _jax(lambda a, b, c, m: _xla_causal_attention(a, b, c, mask=m, **extra),
+                    q, k, v, do, mask)
     for g, wf, wx in zip(got, want_flash, want_xla):
         _close(g, wf)
         _close(g, wx)
 
 
-@pytest.mark.parametrize("S,kvH,masked", [(64, 1, True), (100, 4, False)])
-def test_plain_pieces_match_jax_kernels(S, kvH, masked):
+@pytest.mark.parametrize("S,kvH,masked,alibi", [
+    pytest.param(64, 1, True, False, id="64-1-True"),
+    pytest.param(100, 4, False, False, id="100-4-False"),
+    pytest.param(64, 1, True, True, id="alibi-64-1-True"),
+    pytest.param(100, 4, False, True, id="alibi-100-4-False"),
+    pytest.param(100, 1, True, True, id="alibi-100-1-True")])
+def test_plain_pieces_match_jax_kernels(S, kvH, masked, alibi):
     """lse, dq, dk and dv of the port's plain versions against the JAX
-    kernels' own outputs (interpret mode) on the same pre-scaled q."""
+    kernels' own outputs (interpret mode) on the same pre-scaled q. With
+    ALiBi both take the slopes times log2(e); the port's lse plus
+    ``slope * log2(e) * i`` is compared with JAX's."""
     hd = 16
     q, k, v, do, mask = _inputs(S, kvH, hd, masked)
     keep = np.ones((q.shape[0], S), np.int32) if mask is None else mask
     qs = fa.prescale_q(torch.from_numpy(q))
     kt, vt, dot = torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(do)
     keep_t = None if mask is None else torch.from_numpy(mask)
-    out, lse = fa.flash_fwd(qs, kt, vt, keep_t)
+    slopes = None if not alibi else fa.alibi_log2(torch.from_numpy(_slopes(alibi, q.shape[2])))
+    out, lse = fa.flash_fwd(qs, kt, vt, keep_t, slopes)
     delta = fa.flash_delta(dot, out)
-    dq = fa.flash_bwd_dq(qs, kt, vt, keep_t, dot, lse, delta)
-    dk, dv = fa.flash_bwd_dkv(qs, kt, vt, keep_t, dot, lse, delta)
+    dq = fa.flash_bwd_dq(qs, kt, vt, keep_t, dot, lse, delta, slopes)
+    dk, dv = fa.flash_bwd_dkv(qs, kt, vt, keep_t, dot, lse, delta, slopes)
 
     # the JAX kernels on [B, H, S, hd], S padded to the block as its wrapper pads
     Sp = -(-S // BLOCK) * BLOCK
     pad = lambda a: np.pad(a, ((0, 0), (0, Sp - S), (0, 0), (0, 0))).transpose(0, 2, 1, 3)  # noqa: E731
     jq, jk, jv, jdo = (jnp.asarray(pad(a)) for a in (qs.numpy(), k, v, do))
     jkeep = jnp.asarray(np.pad(keep, ((0, 0), (0, Sp - S))))[:, None, :]
-    slopes = jnp.zeros((q.shape[2], 8), jnp.float32)
-    jout, jlse = jfa._flash_fwd(jq, jk, jv, jkeep, slopes, BLOCK, BLOCK, True, masked, False)
-    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jkeep, slopes, jout, jlse, jdo, BLOCK, BLOCK,
-                                   True, masked, False)
+    H = q.shape[2]
+    jslopes = (jnp.zeros((H, 8), jnp.float32) if slopes is None
+               else jnp.broadcast_to(jnp.asarray(slopes.numpy())[:, None], (H, 8)))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, jkeep, jslopes, BLOCK, BLOCK, True, masked, alibi)
+    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jkeep, jslopes, jout, jlse, jdo, BLOCK, BLOCK,
+                                   True, masked, alibi)
     unpad = lambda a: np.asarray(a)[:, :, :S].transpose(0, 2, 1, 3)  # noqa: E731
     _close(out.numpy(), unpad(jout))
-    _close(lse.numpy(), np.asarray(jlse)[:, :, :S, 0])
+    lse = lse.numpy()
+    if alibi:  # back to JAX's absolute form on the rows that see a key
+        lse = np.where(lse == fa.NEG_INF, lse,
+                       lse + slopes.numpy()[None, :, None] * np.arange(S, dtype=np.float32))
+    _close(lse, np.asarray(jlse)[:, :, :S, 0])
     _close(dq.numpy(), unpad(jdq) * hd ** -0.5)
     _close(dk.numpy(), unpad(jdk) * jfa._LN2)
     _close(dv.numpy(), unpad(jdv))
 
 
 def test_scheduling_kwargs_accepted_alibi_and_bias_refused():
+    """Scheduling knobs change nothing; ALiBi slopes are accepted (and
+    change the output); a dense pair bias, ``impl="xla"`` and an unknown
+    keyword raise."""
     q, k, v, _, _ = _inputs(16, 2, 16, False)
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     base = causal_attention(qt, kt, vt)
     torch.testing.assert_close(causal_attention(qt, kt, vt, block_q=8, block_k=8, k_splits=2), base)
-    with pytest.raises(NotImplementedError):
-        causal_attention(qt, kt, vt, alibi_slopes=torch.ones(4))
+    slopes = torch.from_numpy(_slopes(True))
+    alibi = causal_attention(qt, kt, vt, alibi_slopes=slopes)
+    torch.testing.assert_close(causal_attention(qt, kt, vt, alibi_slopes=slopes, block_q=8), alibi)
+    assert alibi.shape == base.shape and not torch.allclose(alibi, base)
     with pytest.raises(NotImplementedError):
         causal_attention(qt, kt, vt, bias=torch.zeros(4, 16, 16))
     with pytest.raises(NotImplementedError):
@@ -127,18 +174,20 @@ def test_scheduling_kwargs_accepted_alibi_and_bias_refused():
         causal_attention(qt, kt, vt, block_m=8)
 
 
-@pytest.mark.parametrize("S,kvH", [(64, 4), (100, 1)])
-def test_left_padded_rows_match_jax_flash(S, kvH):
+@pytest.mark.parametrize("S,kvH,alibi", [
+    pytest.param(64, 4, False, id="64-4"), pytest.param(100, 1, False, id="100-1"),
+    pytest.param(100, 4, True, id="alibi-100-4")])
+def test_left_padded_rows_match_jax_flash(S, kvH, alibi):
     """Left padding: row 1 drops its first S/4 keys, so its first S/4 queries
     see no key at all. The port gives them output 0 and zero gradients, as
-    JAX's flash kernels (interpret mode) do; every other value within 1e-5."""
+    JAX's flash kernels (interpret mode) do; every other value within 1e-5;
+    with ALiBi too."""
     q, k, v, do, _ = _inputs(S, kvH, 16, False)
     mask = np.ones((q.shape[0], S), np.int32)
     mask[1, : S // 4] = 0
-    got = _port(q, k, v, do, mask)
-    pallas = jops.dispatch("causal_attention", "pallas")
-    want = _jax(lambda a, b, c, m: pallas(a, b, c, mask=m, block_q=BLOCK, block_k=BLOCK),
-                q, k, v, do, mask)
+    slopes = _slopes(alibi)
+    got = _port(q, k, v, do, mask, slopes)
+    want = _jax_flash(q, k, v, do, mask, slopes)
     for g, w in zip(got, want):
         _close(g, w)
     out, dq = got[0], got[1]

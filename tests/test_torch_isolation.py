@@ -109,9 +109,10 @@ def test_init_params_is_seeded_and_shaped():
     {"position": "learned"}, {"parallel_block": True}, {"lm_head_bias": True},
 ])
 def test_unsupported_model_config_raises(model_over):
-    """MoE, parallel blocks and an LM-head bias are not ported at all; the
-    Bloom form (ALiBi, the embedding LayerNorm) serves but does not train;
-    learned positions (GPT-2) train but do not serve."""
+    """MoE, parallel blocks and an LM-head bias are not ported at all;
+    learned positions (GPT-2) train but do not serve; the Bloom form's pieces
+    (ALiBi, the embedding LayerNorm) once served only, and now also build a
+    training spec whose forward gives a finite loss."""
     if set(model_over) & {"num_experts", "parallel_block", "lm_head_bias"}:
         with pytest.raises(NotImplementedError):
             TransformerConfig(**{**_tiny().__dict__, **model_over})
@@ -122,8 +123,8 @@ def test_unsupported_model_config_raises(model_over):
         with pytest.raises(NotImplementedError):
             InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        causal_lm_spec(cfg)
+    loss, _ = causal_lm_spec(cfg).loss_fn(params, {"input_ids": torch.ones(2, 8, dtype=torch.int32)})
+    assert loss.ndim == 0 and bool(torch.isfinite(loss))
     InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
 
 

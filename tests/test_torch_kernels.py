@@ -21,7 +21,12 @@ fp32: summation order only; 2e-2 bf16: P and dS are rounded to bf16 before
 their products, in another order than the plain version's), with each row's
 norm floored at 1e-3 of the RMS row norm (rows that cancel to ~0), and lse by
 1e-4 absolute (fp32 scores from the same operands in both). Rows with no
-visible key must be exactly 0. The quantiser kernels (int8 nearest and
+visible key must be exactly 0. Their ALiBi form (Bloom's slopes times
+log2(e)) is held to the same limits at G = 1 and G = 4, hd 64 and 128, S not
+a multiple of the 64-row tile and a keep-mask with a keyless row, except lse:
+the bias moves it to ~10^2-10^3 past a keep-mask's end, where an fp32 ulp
+passes 1e-5, so its error is held to 1e-6 of max(|lse|, 10) (about 8 ulps);
+ALiBi launches count in ``alibi_launches`` only. The quantiser kernels (int8 nearest and
 stochastic, dequantisation) must equal their plain versions bit for bit:
 both divide and round in IEEE fp32 and hash the same counters. The
 quantised paged kernel (int8 and e4m3 pools) is held to the limits of the
@@ -47,6 +52,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
 from deepspeed_tpu_torch.utils.checks import (
+    check_flash_kernels,
     check_sparse_kernels,
     flash_inputs,
     row_rel_l2,
@@ -291,32 +297,35 @@ FLASH_CASES = {
     "gqa4_s192": dict(B=2, S=192, H=8, kvH=2, hd=64),
     "gqa4_hd128_s70": dict(B=1, S=70, H=8, kvH=2, hd=128),
     "keep_right_pad": dict(B=2, S=130, H=4, kvH=1, hd=64, keep_lens=(130, 77)),
+    "mha_hd128_s130": dict(B=1, S=130, H=4, kvH=4, hd=128),
+    "keep_keyless_row": dict(B=3, S=130, H=8, kvH=2, hd=64, keep_lens=(130, 77, 0)),
 }
+FLASH_ALIBI_LSE_REL = 1e-6  # of max(|lse|, 10)
+
+
+def _flash_counts():
+    return [(fn.launches, fn.alibi_launches) for fn in (fa.flash_fwd, fa.flash_bwd_dq,
+                                                        fa.flash_bwd_dkv)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_kernels_match_plain(cuda_device, case, dtype):
+def test_flash_kernels_match_plain(cuda_device, case, dtype, alibi):
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
     q, k, v, do, keep = flash_inputs(cuda_device, **FLASH_CASES[case], seed=3)
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
-    qs = fa.prescale_q(q)
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
-    out, lse = fa.flash_fwd(qs, k, v, keep)
-    delta = fa.flash_delta(do, out)
-    dq = fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta)
-    dk, dv = fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta)
-    torch.cuda.synchronize()
-    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
-    assert after == tuple(b + 1 for b in before)
-    want_out, want_lse = fa.flash_fwd_reference(qs, k, v, keep)
-    want_dq = fa.flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta)
-    want_dk, want_dv = fa.flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta)
+    slopes = fa.alibi_log2(alibi_slopes(q.shape[2], cuda_device)) if alibi else None
+    before = _flash_counts()
+    readings, lse_abs, lse_rel, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
+    assert _flash_counts() == [(n + (not alibi), a + alibi) for n, a in before]
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    for got, want in ((out, want_out), (dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        assert got.dtype == dtype and got.shape == want.shape
-        assert row_rel_l2(got, want) <= tol
-    assert float((lse - want_lse).abs().max()) <= 1e-4
+    for name, (rel, _) in readings.items():
+        assert rel <= tol, (name, rel)
+    assert dead_exact
+    assert lse_rel <= FLASH_ALIBI_LSE_REL if alibi else lse_abs <= 1e-4
 
 
 @pytest.mark.cuda
@@ -342,6 +351,36 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
                      v[..., :32].contiguous())
     with pytest.raises(TypeError):
         fa.flash_fwd(q, k.bfloat16(), v)
+
+
+def test_cpu_flash_alibi_takes_the_plain_versions():
+    """On CPU tensors the ALiBi form runs the plain versions, launches
+    nothing, and differs from the form without slopes; bad slopes (dtype,
+    shape, device) raise before either runs."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    q, k, v, do, keep = flash_inputs("cpu", B=1, S=20, H=4, kvH=2, hd=16, keep_lens=(15,), seed=3)
+    before = _flash_counts()
+    q.requires_grad_(True)
+    out = fa.flash_causal_attention(q, k, v, mask=keep, alibi_slopes=alibi_slopes(4))
+    out.backward(do)
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert _flash_counts() == before
+    qs = fa.prescale_q(q.detach())
+    slopes = fa.alibi_log2(alibi_slopes(4))
+    got, lse = fa.flash_fwd(qs, k, v, keep, slopes)
+    want, want_lse = fa.flash_fwd_reference(qs, k, v, keep, slopes)
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
+    assert not torch.allclose(got, fa.flash_fwd(qs, k, v, keep)[0])
+    delta = fa.flash_delta(do, got)
+    for bad in (slopes.double(), slopes[:3], slopes.to("meta"), torch.stack([slopes] * 2, 1)[:, 0]):
+        with pytest.raises(ValueError, match="slopes"):
+            fa.flash_fwd(qs, k, v, keep, bad)
+        with pytest.raises(ValueError, match="slopes"):
+            fa.flash_bwd_dq(qs, k, v, keep, do, lse, delta, bad)
+        with pytest.raises(ValueError, match="slopes"):
+            fa.flash_bwd_dkv(qs, k, v, keep, do, lse, delta, bad)
+    assert _flash_counts() == before
 
 
 def test_cpu_flash_takes_the_plain_versions():

@@ -9,8 +9,11 @@ Cases: a Llama-form config (GQA, RoPE, RMSNorm, SiLU-GLU, untied head) with
 ``fused_ce_min_vocab`` lowered so the fused chunked cross entropy runs, and a
 GPT-2-form config (LayerNorm, learned positions, GELU, tied embeddings,
 biases) in the ``scan_layers=False`` layout with ``fused_ce=False``, as the
-headline bench runs it. A padding mask drops the tail of one row on odd
-steps.
+headline bench runs it, and a Bloom-form config (LayerNorm, ALiBi through
+the flash path's ALiBi form, GELU, q/k/v/dense/MLP biases, a LayerNorm after
+the embedding, tied head) with ``fused_ce_min_vocab`` lowered so the fused
+cross entropy runs with the tied head. A padding mask drops the tail of one
+row on odd steps.
 
 Tolerances: fp32, every step's loss and gradient norm and every final weight
 leaf within 1e-5 relative (L2 over the leaf); only the order of sums
@@ -50,6 +53,9 @@ CASES = {
     "llama_fused_ce": dict(num_kv_heads=2, fused_ce_min_vocab=64),
     "gpt2_layer_list": dict(norm="layernorm", activation="gelu", position="learned",
                             tie_embeddings=True, scan_layers=False, fused_ce=False),
+    "bloom_tied_fused_ce": dict(norm="layernorm", activation="gelu", position="alibi",
+                                qkv_bias=True, dense_bias=True, embed_norm=True,
+                                tie_embeddings=True, fused_ce_min_vocab=64),
 }
 LR = 1e-2
 CONFIG = {
@@ -207,13 +213,16 @@ def test_zero_section_of_a_jax_config_loads():
 
 
 @pytest.mark.parametrize("model_over", [
-    {"remat": True}, {"dropout": 0.1}, {"attn_impl": "xla"}, {"position": "alibi"},
+    {"remat": True}, {"dropout": 0.1}, {"attn_impl": "xla"},
+    {"position": "alibi", "attn_impl": "sparse", "sparse_attention": {"mode": "bigbird",
+                                                                      "block": 8}},
     {"sparse_embedding_grads": True},
 ])
 def test_model_refusals(model_over):
-    """Refused at construction, or (ALiBi, which only serving carries) by
-    the training forward."""
-    with pytest.raises(NotImplementedError):
+    """Refused at construction, or (ALiBi under block-sparse attention,
+    which JAX routes to its dense masked path) by the training forward, by
+    name."""
+    with pytest.raises(NotImplementedError, match="|".join(model_over)):
         causal_lm_spec(TransformerConfig(**COMMON, **model_over))
 
 
