@@ -140,6 +140,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 )
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
 from deepspeed_tpu_torch.utils.checks import (
+    LSE_ALIBI_REL,
     check_flash_kernels,
     check_sparse_kernels,
     flash_inputs,
@@ -181,12 +182,7 @@ PAGED_TOL = {torch.bfloat16: (2e-2, 2e-2, 2e-2), torch.float32: (2e-5, 2e-5, 1e-
 # max 7.4e-3 (dq, Llama-3-8B heads), fp32 max 1.8e-6 (out; dq, dk and dv
 # matched bit for bit), lse max 1.9e-6 (one fp32 ulp at |lse| ~ 16).
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
-LSE_TOL = 1e-5
-# the ALiBi form's lse: past a keep-mask's end the bias moves a row's lse to
-# ~10^2-10^3, where one fp32 ulp (6e-5 at 10^3) passes LSE_TOL, so its error
-# is held to 1e-6 of max(|lse|, 10): about 8 ulps, and LSE_TOL itself where
-# |lse| <= 10. The rest of each ALiBi check uses FLASH_TOL as above.
-LSE_ALIBI_REL = 1e-6
+LSE_TOL = 1e-5  # the ALiBi form's lse is held to LSE_ALIBI_REL (utils/checks.py)
 LOGITS_REL_L2 = 5e-2  # kernels vs plain versions through 32 bf16 layers
 # 2-layer llama3-1b micro-step, kernels vs plain versions in bf16: relative
 # error of the loss, and relative L2 error of each gradient leaf (first full
@@ -480,8 +476,7 @@ def check_flash(dev, shape, dtype, alibi=False):
     q, k, v, do, keep = flash_inputs(dev, **shape)
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     slopes = fa.alibi_log2(alibi_slopes(shape["H"], dev)) if alibi else None
-    readings, lse_abs, lse_rel, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
-    lse_err = lse_rel if alibi else lse_abs
+    readings, lse_err, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
     ok = (all(rel <= FLASH_TOL[dtype] for rel, _ in readings.values()) and dead_exact
           and lse_err <= (LSE_ALIBI_REL if alibi else LSE_TOL))
     return ok, readings, lse_err
@@ -1191,19 +1186,23 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
 
 
 def slice_config(kind):
-    """(config, batch shape, padded, counters the kernels bump, their module
-    and wrappers) of phase 5's micro-step: ``llama`` (flash attention with a
-    padded row), ``sparse`` (the sparse config without a padding mask, which
-    would take the dense path) or ``bloom`` (2-layer full-width Bloom-560M,
-    the ALiBi form, a padded row)."""
+    """Phase 5's micro-step of one kind, as a dict: the model's ``name``,
+    ``config``, batch ``shape``, whether a row is ``padded``, its weights'
+    ``init`` and the launch ``counters`` its kernels bump. ``llama``: flash
+    attention with a padded row; ``sparse``: the sparse config without a
+    padding mask (which would take the dense path); ``bloom``: 2-layer
+    full-width Bloom-560M, the ALiBi form, a padded row."""
     if kind == "bloom":
         cfg = TransformerConfig(**dict(BLOOM_560M, num_layers=2), dtype=torch.bfloat16)
-        return cfg, (4, 2048), True, FLASH_ALIBI_KERNELS, fa, FLASH_KERNELS
+        return dict(name="bloom-560m", config=cfg, shape=(4, 2048), padded=True,
+                    init=bloom_params, counters=FLASH_ALIBI_KERNELS)
     over = dict(attn_impl="sparse", sparse_attention=SPARSE_ATTENTION) if kind == "sparse" else {}
     cfg = dataclasses.replace(PRESETS["llama3-1b"], num_layers=2, dtype=torch.bfloat16, **over)
     if kind == "sparse":
-        return cfg, (2, SPARSE_SEQ), False, SPARSE_KERNELS, bs, SPARSE_KERNELS
-    return cfg, (4, 2048), True, FLASH_KERNELS, fa, FLASH_KERNELS
+        return dict(name="llama3-1b", config=cfg, shape=(2, SPARSE_SEQ), padded=False,
+                    init=init_params, counters=SPARSE_KERNELS)
+    return dict(name="llama3-1b", config=cfg, shape=(4, 2048), padded=True, init=init_params,
+                counters=FLASH_KERNELS)
 
 
 def phase_slice_check(dev, results, kind="llama") -> bool:
@@ -1212,9 +1211,11 @@ def phase_slice_check(dev, results, kind="llama") -> bool:
     names the three kinds); every gradient leaf is compared, the key bias
     (``SHIFT_INVARIANT``) on its query bias's scale."""
     tag = "slice" if kind == "llama" else f"slice {kind}"
-    cfg, (B, S), padded, counters, module, wrappers = slice_config(kind)
-    init = bloom_params if kind == "bloom" else init_params
-    params = init(cfg, seed=1, device=dev, dtype=torch.bfloat16)
+    kind_cfg = slice_config(kind)
+    cfg, (B, S), counters = kind_cfg["config"], kind_cfg["shape"], kind_cfg["counters"]
+    # the kernel family the counters name, swapped for its plain versions below
+    module, wrappers = (bs, SPARSE_KERNELS) if counters == SPARSE_KERNELS else (fa, FLASH_KERNELS)
+    params = kind_cfg["init"](cfg, seed=1, device=dev, dtype=torch.bfloat16)
     flat = flatten(params)
     for t in flat.values():
         t.requires_grad_(True)
@@ -1222,7 +1223,7 @@ def phase_slice_check(dev, results, kind="llama") -> bool:
     rng = np.random.default_rng(2)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     batch = {"input_ids": ids}
-    if padded:
+    if kind_cfg["padded"]:
         mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         mask[1, 1500:] = 0
         batch["attention_mask"] = mask
@@ -1257,8 +1258,7 @@ def phase_slice_check(dev, results, kind="llama") -> bool:
     ok = (launches == expect and plain_launches == launches and math.isfinite(loss_rel)
           and loss_rel <= SLICE_LOSS_REL and all(r <= SLICE_GRAD_REL_L2 for r in rels.values())
           and all(bool(torch.isfinite(g).all()) for g in grads_k.values()))
-    name = "bloom-560m" if kind == "bloom" else "llama3-1b"
-    log(f"[{tag}] 2-layer {name} micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
+    log(f"[{tag}] 2-layer {kind_cfg['name']} micro-step {B} x {S}: loss kernels {float(loss_k):.5f} plain "
         f"{float(loss_p):.5f} (rel {loss_rel:.2e}, bound {SLICE_LOSS_REL}); gradient leaves rel L2 "
         f"max {rels[worst]:.3e} at {worst} (bound {SLICE_GRAD_REL_L2}); launches {launches} "
         f"(expected {expect}), plain run launched none: {plain_launches == launches} "

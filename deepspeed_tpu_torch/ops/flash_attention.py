@@ -45,7 +45,7 @@ output 0, ``lse = finfo(float32).min`` and zero gradients. ``lse`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -267,10 +267,24 @@ def prescale_q(q: torch.Tensor) -> torch.Tensor:
     return q * scale
 
 
+# id(slopes) -> (slopes, its version, the kernels' form of it)
+_SLOPES_LOG2: Dict[int, Tuple[torch.Tensor, int, torch.Tensor]] = {}
+
+
 def alibi_log2(alibi_slopes: torch.Tensor) -> torch.Tensor:
     """ALiBi slopes as the kernels take them: detached (constants, as JAX's
-    ``stop_gradient``), times ``log2(e)`` in fp32, contiguous."""
-    return (alibi_slopes.detach().float() * _LOG2E).contiguous()
+    ``stop_gradient``), times ``log2(e)`` in fp32, contiguous. Kept per
+    slopes tensor until it is changed in place: the model passes one cached
+    tensor per head count and device, so a layer call launches nothing here."""
+    version = -1 if alibi_slopes.is_inference() else alibi_slopes._version  # inference tensors have none
+    hit = _SLOPES_LOG2.get(id(alibi_slopes))
+    if hit is None or hit[1] != version or version < 0:
+        if len(_SLOPES_LOG2) >= 16:
+            _SLOPES_LOG2.clear()
+        # the entry holds the tensor itself, so its id is not reused while kept
+        hit = (alibi_slopes, version, (alibi_slopes.detach().float() * _LOG2E).contiguous())
+        _SLOPES_LOG2[id(alibi_slopes)] = hit
+    return hit[2]
 
 
 def flash_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

@@ -193,3 +193,19 @@ def test_left_padded_rows_match_jax_flash(S, kvH, alibi):
     out, dq = got[0], got[1]
     assert np.all(out[1, : S // 4] == 0) and np.all(dq[1, : S // 4] == 0)
     assert np.all(want[0][1, : S // 4] == 0)
+
+
+def test_alibi_log2_is_kept_per_slopes_tensor():
+    """The kernels' form of the slopes is made once per slopes tensor (the
+    model's come cached per head count and device), and made anew after the
+    tensor is changed in place."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    natural = alibi_slopes(4)
+    scaled = fa.alibi_log2(natural)
+    assert fa.alibi_log2(natural) is scaled
+    np.testing.assert_array_equal(scaled.numpy(), (natural * np.log2(np.e)).numpy())
+    other = natural.clone()
+    assert fa.alibi_log2(other) is not scaled
+    other.mul_(2.0)
+    np.testing.assert_allclose(fa.alibi_log2(other).numpy(), 2 * scaled.numpy(), rtol=1e-7)

@@ -52,6 +52,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
 from deepspeed_tpu_torch.utils.checks import (
+    LSE_ALIBI_REL,
     check_flash_kernels,
     check_sparse_kernels,
     flash_inputs,
@@ -300,7 +301,6 @@ FLASH_CASES = {
     "mha_hd128_s130": dict(B=1, S=130, H=4, kvH=4, hd=128),
     "keep_keyless_row": dict(B=3, S=130, H=8, kvH=2, hd=64, keep_lens=(130, 77, 0)),
 }
-FLASH_ALIBI_LSE_REL = 1e-6  # of max(|lse|, 10)
 
 
 def _flash_counts():
@@ -319,13 +319,13 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype, alibi):
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
     slopes = fa.alibi_log2(alibi_slopes(q.shape[2], cuda_device)) if alibi else None
     before = _flash_counts()
-    readings, lse_abs, lse_rel, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
+    readings, lse_err, dead_exact = check_flash_kernels(q, k, v, do, keep, slopes)
     assert _flash_counts() == [(n + (not alibi), a + alibi) for n, a in before]
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for name, (rel, _) in readings.items():
         assert rel <= tol, (name, rel)
     assert dead_exact
-    assert lse_rel <= FLASH_ALIBI_LSE_REL if alibi else lse_abs <= 1e-4
+    assert lse_err <= (LSE_ALIBI_REL if alibi else 1e-4)
 
 
 @pytest.mark.cuda
