@@ -23,7 +23,12 @@ Phases, any failure exits non-zero:
           path's shape (BigBird, block 16, S 4096, 32 heads, D 64, causal), a
           ``fixed`` layout at block 32 and D 128, a non-causal BigBird layout
           and a hand-made layout with empty block rows at block 64, each in
-          bf16 and fp32 (tolerances stated beside each check);
+          bf16 and fp32; the grouped GEMM at Mixtral-8x7B's up (K 4096, N
+          14336) and down (K 14336, N 4096) projections on group sizes from
+          top-2 routing of 4096 random tokens and on a skewed set (half the
+          rows in one group, an empty group, a single row, m = 4099), and at
+          K 1001, N 299 with rows past the sizes' sum, each in bf16 and fp32
+          (tolerances stated beside each check);
 3. serve  Llama-3-8B at full width and depth (random bf16 weights from a seed,
           a 4 GiB bf16 KV pool: 2048 x 16 slots) through
           ``InferenceEngineV2.generate``: 8 prompts of 32-1000 tokens, 64 new
@@ -53,6 +58,17 @@ Phases, any failure exits non-zero:
           with int8 WOQ and an e4m3 pool: 30 ALiBi launches of the paged
           kernel per forward, the plain version never called, prefill logits
           held to the plain versions, a decode chain profiled for each;
+   mixtral Mixtral-8x7B's widths (``MIXTRAL_8X7B``, the public config) at 16
+          of its 32 layers (23.5 B parameters, 47 GB of random bf16 weights
+          from seed 0: the full 93 GB does not fit the card) through
+          ``InferenceEngineV2.generate``: 16 prompts of 32-1000 tokens (the
+          8 above and 8 more), 64 new tokens, decode chains of 8, over a
+          bf16 pool and an int8 pool. Every forward's token count T (pads
+          included) is recorded: the forwards with T >= 2E = 16 (the
+          prefill and the 16-row decodes) must launch the grouped GEMM 3
+          times a layer, the others take the dense combine, and the plain
+          grouped matmul is never called; prefill logits held to the plain
+          versions, a decode chain profiled;
 4. train  Llama-3.2-1B (the ``llama3-1b`` preset) at full width and depth
           through ``initialize`` / ``train_batch``, with the JAX package's
           headline training config (bench.py) less its ``hbm_guard``,
@@ -91,8 +107,10 @@ Phases, any failure exits non-zero:
           one PyTorch library call computing the same function (none for the
           quantisers; for the sparse kernels SDPA with the layout expanded to
           a token mask; for the ALiBi forms SDPA with the bias and the causal
-          mask as one float mask), the flash kernels' ALiBi form at
-          Bloom-560M's shape beside the form without it.
+          mask as one float mask; for the grouped GEMM ``torch._grouped_mm``),
+          the flash kernels' ALiBi form at Bloom-560M's shape beside the form
+          without it, the grouped GEMM at Mixtral's up projection for a
+          prefill (8192 routed rows) and a decode (32 routed rows).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -119,6 +137,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 import deepspeed_tpu_torch
+import deepspeed_tpu_torch.inference.model as model_mod
 import deepspeed_tpu_torch.inference.paged as paged_mod
 import deepspeed_tpu_torch.inference.woq as woq_mod
 import deepspeed_tpu_torch.models.transformer as transformer_mod
@@ -129,6 +148,7 @@ from deepspeed_tpu_torch.models import PRESETS, CausalLM, TransformerConfig, cau
 from deepspeed_tpu_torch.models.transformer import alibi_slopes, flatten, sparse_layout
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import grouped_matmul as gmm_mod
 from deepspeed_tpu_torch.ops import norms as norms_mod
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import quant as quant_mod
@@ -140,10 +160,15 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 )
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
 from deepspeed_tpu_torch.utils.checks import (
+    GMM_SKEWED_SIZES,
+    GMM_TOL,
     LSE_ALIBI_REL,
     check_flash_kernels,
+    check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
+    grouped_inputs,
+    routed_group_sizes,
 )
 
 # the module (``deepspeed_tpu_torch.ops`` re-exports its function of the same name)
@@ -184,6 +209,12 @@ PAGED_TOL = {torch.bfloat16: (2e-2, 2e-2, 2e-2), torch.float32: (2e-5, 2e-5, 1e-
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LSE_TOL = 1e-5  # the ALiBi form's lse is held to LSE_ALIBI_REL (utils/checks.py)
 LOGITS_REL_L2 = 5e-2  # kernels vs plain versions through 32 bf16 layers
+# an MoE model's prefill check: the plain run takes the kernels' run's expert
+# choices, and where its own would differ, its probability margin between the
+# k-th and (k+1)-th expert must be a near tie. bf16 rounding moves a router
+# logit by ~1e-2 and a probability by a few 1e-3 (first H100 run: flips at
+# margins of at most 8.2e-3 over 16 layers)
+MOE_FLIP_MARGIN = 2e-2
 # 2-layer llama3-1b micro-step, kernels vs plain versions in bf16: relative
 # error of the loss, and relative L2 error of each gradient leaf (first full
 # run: 4.4e-6 and at most 1.27e-2, the embedding's; the limits leave 20x and 4x)
@@ -260,6 +291,11 @@ QUANT_KERNELS = ("quantize_int8", "quantize_int8_stochastic", "dequantize_int8")
 KV_POOL_BYTES = 4 * 2 ** 30  # every serving engine's KV pool budget
 W_UP_SLICE = (4096, 14336)  # one layer of Llama-3-8B's w_up: 58,720,256 elements
 KV_CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# grouped-GEMM check shapes (K, N): Mixtral-8x7B's up and down projections;
+# and an edge set (sizes, rows, K, N): K and N not multiples of 8 (the
+# element-wise copy path), empty groups and 10 rows past the sizes' sum
+GMM_SHAPES = {"up": (4096, 14336), "down": (14336, 4096)}
+GMM_EDGE = ((0, 37, 1, 200, 0, 5, 64, 3), 320, 1001, 299)
 
 
 def log(msg: str) -> None:
@@ -287,7 +323,8 @@ def counted() -> dict:
             **{name: (getattr(quant_mod, name), "launches") for name in QUANT_KERNELS},
             **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS},
             **{f"{name}_alibi": (getattr(fa, name), "alibi_launches") for name in FLASH_KERNELS},
-            **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS}}
+            **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS},
+            "grouped_matmul": (gmm_mod.grouped_matmul, "launches")}
 
 
 def launch_counts() -> dict:
@@ -295,8 +332,10 @@ def launch_counts() -> dict:
 
 
 def zero_counts() -> None:
+    """Every kernel's launch counter and ``_moe``'s per-regime call counters."""
     for fn, attr in counted().values():
         setattr(fn, attr, 0)
+    model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
 
 
 def compare_rms(got, want, dtype):
@@ -718,7 +757,39 @@ def phase_checks(dev, max_err):
             if not ok:
                 failures.append(f"sparse {label} {dtype}")
             torch.cuda.empty_cache()
+    failures += check_grouped(dev, max_err)
     return failures, checks
+
+
+def check_grouped(dev, max_err):
+    """Phase 2's grouped-GEMM checks: Mixtral-8x7B's up and down projections
+    on group sizes from top-2 routing of 4096 random tokens (a prefill) and
+    of 16 (a 16-row decode forward: 32 routed rows, tiles almost all
+    masked), and on the skewed set, and K, N not multiples of 8 with rows
+    past the sizes' sum, each in bf16 and fp32 (TF32 off), held by
+    ``GMM_TOL``."""
+    sets = {"routed 4096 tokens top-2": (routed_group_sizes(4096), None),
+            "routed 16 tokens top-2": (routed_group_sizes(16), None),
+            "skewed": (GMM_SKEWED_SIZES, None)}
+    cases = [(f"{proj} {label}", sizes, rows, K, N) for proj, (K, N) in GMM_SHAPES.items()
+             for label, (sizes, rows) in sets.items()]
+    cases.append(("edges", *GMM_EDGE))
+    failures = []
+    for label, sizes, rows, K, N in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            lhs, rhs, gs = grouped_inputs(dev, sizes, K, N, dtype, rows=rows)
+            ok, mabs, share = check_grouped_matmul(lhs, rhs, gs)
+            if dtype == torch.bfloat16:
+                max_err["grouped_matmul"] = max(max_err["grouped_matmul"], mabs)
+            rtol, atol = GMM_TOL[dtype]
+            log(f"[check] grouped_matmul {label} sizes {list(sizes)}: [{lhs.shape[0]}, {K}] x "
+                f"[{len(sizes)}, {K}, {N}] {str(dtype)[6:]}: max_abs {mabs:.3e}, largest error / "
+                f"bound {share:.3f}; tol rtol={rtol} atol={atol} x RMS {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"grouped_matmul {label} {dtype}")
+            del lhs, rhs, gs
+            torch.cuda.empty_cache()
+    return failures
 
 
 SERVE_CONFIG = {"dtype": "bf16", "kv_block_size": 16, "kv_pool_bytes": KV_POOL_BYTES,
@@ -757,10 +828,43 @@ def timed_generate(engine, prompts, max_new_tokens=64):
     return outs, time.perf_counter() - t0, spans, torch.cuda.max_memory_allocated() / 1e9
 
 
-def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None):
+def shared_routing(routing, plain):
+    """A stand-in for ``inference.model._route``. The kernels' run appends each
+    layer's expert choices ``top_i`` to ``routing["recorded"]``; the plain
+    run takes them in the same order in place of its own, so that both runs
+    send each token to the same experts, and gates them with its own
+    probabilities at those experts, renormalised as ``_route`` does. It
+    counts the decisions its own routing would have made otherwise, with the
+    largest margin between its k-th and (k+1)-th expert probabilities among
+    them."""
+    real_route = model_mod._route
+
+    def route(lp, cfg, tokens):
+        probs, top_p, top_i = real_route(lp, cfg, tokens)
+        if not plain:
+            routing["recorded"].append(top_i)
+            return probs, top_p, top_i
+        shared_i = routing["recorded"][routing["replayed"]]
+        routing["replayed"] += 1
+        top_p = probs.gather(1, shared_i)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        flip = (top_i.sort(-1).values != shared_i.sort(-1).values).any(-1)
+        ranked = probs.sort(-1, descending=True).values
+        margin = ranked[:, cfg.moe_top_k - 1] - ranked[:, cfg.moe_top_k]
+        routing["decisions"] += flip.numel()
+        routing["flips"] += int(flip.sum())
+        if bool(flip.any()):
+            routing["max_flip_margin"] = max(routing["max_flip_margin"], float(margin[flip].max()))
+        return probs, top_p, shared_i
+
+    return mock.patch.object(model_mod, "_route", route)
+
+
+def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None, routing=None):
     """Last-token logits [3, V] of one ragged prefill step (200, 32 and 77
     tokens) on a fresh 64-block pool, through the kernels or, with ``plain``,
-    through the plain versions (which must launch nothing)."""
+    through the plain versions (which must launch nothing). An MoE model's
+    two runs share their routing through ``routing`` (``shared_routing``)."""
     bs = 16
     P = 2048 // bs
     pool = init_pool(cfg, 64, bs, torch.bfloat16, dev, kv_quant=kv_quant)
@@ -768,12 +872,15 @@ def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None):
                            [prompts[1][:200], prompts[0], prompts[2][:77]], P,
                            row_bucket=8, chunk_bucket=16)
     arrs = [torch.from_numpy(a).to(dev) for a in (b.tokens, b.positions, b.new_lens, b.block_tables)]
+    routes = shared_routing(routing, plain) if routing is not None else contextlib.nullcontext()
     if not plain:
-        return ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
+        with routes:
+            return ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
     before = launch_counts()
-    with mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
+    with routes, mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
             mock.patch.object(paged_mod, "paged_attention", paged_attention_reference), \
-            mock.patch.object(woq_mod, "dequantize_int8", quant_mod.dequantize_int8_reference):
+            mock.patch.object(woq_mod, "dequantize_int8", quant_mod.dequantize_int8_reference), \
+            mock.patch.object(model_mod, "grouped_matmul", gmm_mod.grouped_matmul_plain):
         out = ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
     if launch_counts() != before:
         raise RuntimeError("the plain run launched a kernel")
@@ -782,23 +889,48 @@ def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None):
 
 def check_prefill_logits(tag, dev, cfg, params, prompts, results, kv_quant=None):
     """Prefill-step logits through the kernels against the plain versions;
-    returns the kernels' logits, or None when they disagree."""
-    logits = {mode: prefill_step_logits(dev, cfg, params, prompts, mode == "plain", kv_quant)
+    returns the kernels' logits, or None when they disagree. An MoE model's
+    plain run takes the kernels' run's expert choices (a near tie decided
+    the other way by rounding would move a token's whole FFN output), and
+    each choice its own routing would have made otherwise must be a near
+    tie: a margin of at most ``MOE_FLIP_MARGIN``."""
+    routing = (dict(recorded=[], replayed=0, decisions=0, flips=0, max_flip_margin=0.0)
+               if cfg.num_experts else None)
+    logits = {mode: prefill_step_logits(dev, cfg, params, prompts, mode == "plain", kv_quant,
+                                        routing)
               for mode in ("kernels", "plain")}
+    if routing is not None:
+        shared = routing["replayed"] == len(routing["recorded"]) > 0
+        results.update(routing_decisions=routing["decisions"], routing_flips=routing["flips"],
+                       routing_max_flip_margin=routing["max_flip_margin"])
+        log(f"[{tag}] routing shared by the plain run over {routing['replayed']} layer calls: its "
+            f"own routing chose other experts for {routing['flips']} of {routing['decisions']} "
+            f"tokens x layers, at a largest top-{cfg.moe_top_k} margin of "
+            f"{routing['max_flip_margin']:.3e} (bound {MOE_FLIP_MARGIN})")
+        if not shared or routing["max_flip_margin"] > MOE_FLIP_MARGIN:
+            log(f"[{tag}] FAILED: the routing was not shared, or differed beyond a near tie")
+            return None
     diff = logits["kernels"] - logits["plain"]
     rel = float(diff.norm() / logits["plain"].norm())
-    agree = float((logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)).float().mean())
+    same = logits["kernels"].argmax(-1) == logits["plain"].argmax(-1)
+    agree = float(same.float().mean())
+    # a row whose top-2 margin in the plain logits exceeds twice its largest
+    # |kernels - plain| difference cannot change its argmax: each must agree
+    top2 = logits["plain"].topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff.abs().amax(-1)
     log(f"[{tag}] prefill-step logits, kernels vs plain: rel L2 {rel:.3e} (bound {LOGITS_REL_L2}), "
-        f"max_abs {float(diff.abs().max()):.3e}, argmax agreement {agree:.2f}")
-    results["logits_rel_l2"] = rel
-    if not (math.isfinite(rel) and rel <= LOGITS_REL_L2):
+        f"max_abs {float(diff.abs().max()):.3e}, argmax agreement {agree:.2f} (required on the "
+        f"{int(decided.sum())} of {len(same)} rows whose top-2 margin exceeds twice their largest "
+        f"difference)")
+    results["logits_rel_l2"], results["logits_argmax_agreement"] = rel, agree
+    if not (math.isfinite(rel) and rel <= LOGITS_REL_L2) or not bool(same[decided].all()):
         log(f"[{tag}] FAILED: prefill logits disagree with the plain versions")
         return None
     return logits["kernels"]
 
 
 def profile_chain(tag, engine, prompts):
-    """One decode chain (8 rows x 8 steps, after a prefill of ``prompts``)
+    """One decode chain (a row per prompt x 8 steps, after a prefill of ``prompts``)
     under the profiler, after the counted run: (``log_profile``'s record,
     the device time by kernel), or None when the profiler saw no device
     time."""
@@ -810,7 +942,7 @@ def profile_chain(tag, engine, prompts):
     if prof[1] <= 0:
         log(f"[{tag}] FAILED: the profiler saw no device time in the decode chain")
         return None
-    return log_profile(tag, "decode chain (8 rows x 8 steps)", *prof), prof[3]
+    return log_profile(tag, f"decode chain ({len(uids)} rows x 8 steps)", *prof), prof[3]
 
 
 def woq_reads(engine):
@@ -1110,6 +1242,140 @@ def phase_bloom_serve(dev, results):
         gc.collect()  # the timing wrappers hold the engine in a reference cycle
         torch.cuda.empty_cache()
     del params, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+# mistralai/Mixtral-8x7B-v0.1's public config.json (vocab_size 32000,
+# hidden_size 4096, intermediate_size 14336, num_hidden_layers 32,
+# num_attention_heads 32, num_key_value_heads 8, num_local_experts 8,
+# num_experts_per_tok 2, rope_theta 1e6, rms_norm_eps 1e-5,
+# max_position_embeddings 32768, tie_word_embeddings false), mapped as
+# deepspeed_tpu/checkpoint/hf.py:87-108 maps model_type "mixtral": RMSNorm,
+# SiLU-GLU experts, RoPE, untied head
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+                    num_heads=32, num_kv_heads=8, max_seq_len=32768, rope_theta=1e6,
+                    norm_eps=1e-5, num_experts=8, moe_top_k=2)
+# 46.7 B parameters (93 GB in bf16) do not fit one 80 GB card: the phase
+# serves the first 16 of the 32 layers at full width (23.5 B, 47 GB)
+MIXTRAL_LAYERS = 16
+# (tag, engine settings beside SERVE_CONFIG) of the Mixtral serving phase
+MIXTRAL_ENGINES = {"mixtral-8x7b bf16": {}, "mixtral-8x7b int8 kv": {"kv_cache_dtype": "int8"}}
+
+
+def mixtral_prompts(cfg):
+    """The serving cell's 8 prompts and 8 more drawn the same way (numpy seed
+    2, lengths in [32, 1000]): 16 rows, so that the decode forwards have T =
+    16 = 2E tokens and take the grouped GEMM."""
+    plens, prompts = serve_prompts(cfg)
+    prng = np.random.default_rng(2)
+    more = [int(n) for n in prng.integers(32, 1001, 8)]
+    return plens + more, prompts + [prng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                                    for n in more]
+
+
+def phase_mixtral_serve(dev, results):
+    """Phase 3d: Mixtral-8x7B's widths at 16 of its 32 layers through
+    InferenceEngineV2.generate over a bf16 pool and an int8 pool, each
+    engine warmed up, then run with the counters zeroed just before and read
+    just after. Every forward's token count T = N * C (pads included) is
+    recorded: the forwards with T >= 2E must have run the grouped GEMM 3
+    times a layer and the others the dense combine, the plain grouped
+    matmul never. Returns {tag: launch counts} of the counted runs, or None
+    on failure."""
+    cfg = dataclasses.replace(TransformerConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16),
+                              num_layers=MIXTRAL_LAYERS)
+    full = TransformerConfig(**MIXTRAL_8X7B, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in flatten(params).values())
+    log(f"[mixtral] init mixtral-8x7b widths at {cfg.num_layers} of {full.num_layers} layers: "
+        f"{cfg.num_params() / 1e9:.3f} B params of the full model's {full.num_params() / 1e9:.3f} B "
+        f"(JAX count), {weight_bytes / 1e9:.2f} GB of weights; {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated in {time.perf_counter() - t0:.1f} s")
+    plens, prompts = mixtral_prompts(cfg)
+    L, E = cfg.num_layers, cfg.num_experts
+    by_path = {}
+    real_forward = paged_mod._forward_hidden
+    for tag, over in MIXTRAL_ENGINES.items():
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngineV2(cfg, params, dict(SERVE_CONFIG, **over), device=dev)
+        engine.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS and allocator first calls
+        engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
+        engine.chain_steps = engine.model_forwards = 0
+        shapes, plain_calls = [], []
+        real_plain = gmm_mod.grouped_matmul_plain
+
+        def record(params_, cfg_, pool, tokens, *a, **k):
+            shapes.append(tuple(tokens.shape))
+            return real_forward(params_, cfg_, pool, tokens, *a, **k)
+
+        def spy(*a, **k):
+            plain_calls.append(1)
+            return real_plain(*a, **k)
+
+        zero_counts()
+        with mock.patch.object(paged_mod, "_forward_hidden", record), \
+                mock.patch.object(gmm_mod, "grouped_matmul_plain", spy):
+            outs, wall, spans, peak_gb = timed_generate(engine, prompts)
+        launches = launch_counts()
+        calls = (model_mod._moe.dense_calls, model_mod._moe.ragged_calls)
+        forwards = engine.model_forwards
+        ragged = [(n, c) for n, c in shapes if n * c >= 2 * E]
+        ragged_prefill = sum(1 for _, c in ragged if c > 1)
+        ragged_decode = len(ragged) - ragged_prefill
+        paged = "paged_attention" if engine.config.kv_quant is None else "paged_attention_quant"
+        expect = dict({k: 0 for k in launches}, rms_norm=(2 * L + 1) * forwards,
+                      grouped_matmul=3 * L * len(ragged), **{paged: L * forwards})
+        expect_calls = (L * (len(shapes) - len(ragged)), L * len(ragged))
+        log(f"[{tag}] {len(prompts)} prompts {plens}; {forwards} forwards ({len(ragged)} with T >= "
+            f"2E = {2 * E}: {ragged_prefill} prefill, {ragged_decode} decode), "
+            f"{engine.dispatch_count} dispatches, launches {launches} (expected {expect}); _moe "
+            f"calls dense/ragged {calls} (expected {expect_calls}); plain grouped matmul called "
+            f"{len(plain_calls)} times")
+        if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
+            log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
+            return None
+        if (launches != expect or calls != expect_calls or plain_calls or len(shapes) != forwards
+                or ragged_prefill == 0 or ragged_decode == 0):
+            log(f"[{tag}] FAILED: kernel launch or regime counts do not match the forwards run")
+            return None
+        prefill_tokens = sum(plens)
+        r = results[tag] = {
+            "layers": L, "full_layers": full.num_layers, "kv_cache_dtype": engine.config.kv_dtype_name,
+            "prompt_lens": plens, "forwards": forwards, "ragged_forwards": len(ragged),
+            "ragged_prefill_forwards": ragged_prefill, "ragged_decode_forwards": ragged_decode,
+            "forward_shapes": shapes, "launches": launches, "moe_calls_dense_ragged": list(calls),
+            "wall_s": wall, "prefill_s": spans["prefill"], "decode_s": spans["decode"],
+            "prefill_tok_s": prefill_tokens / spans["prefill"],
+            "decode_tok_s": engine.tokens_decoded / spans["decode"],
+            "tokens_decoded": engine.tokens_decoded, "peak_mem_gb": peak_gb,
+            "weight_bytes": weight_bytes, "kv_bytes_per_token": engine.kv_bytes_per_token,
+            "kv_blocks": engine.num_kv_blocks, "first_tokens": [o[:8].tolist() for o in outs[:2]],
+        }
+        log(f"[{tag}] generate {wall:.2f} s: prefill {prefill_tokens} tokens in "
+            f"{spans['prefill']:.3f} s ({r['prefill_tok_s']:.1f} tok/s), decode "
+            f"{engine.tokens_decoded} tokens in {spans['decode']:.3f} s ({r['decode_tok_s']:.1f} "
+            f"tok/s), peak memory {peak_gb:.2f} GB; weights {weight_bytes / 1e9:.3f} GB; KV "
+            f"{engine.kv_bytes_per_token} B/token, {engine.num_kv_blocks} blocks of 16")
+        if check_prefill_logits(tag, dev, cfg, engine.params, prompts, r,
+                                kv_quant=engine.config.kv_quant) is None:
+            return None
+        prof = profile_chain(tag, engine, prompts)
+        if prof is None:
+            return None
+        r["profile_decode_chain"], rows = prof
+        gmm_ms = sum(ms for ms, _, name in rows if "gmm_bf16_kernel" in name)
+        r["grouped_matmul_share_of_device_time"] = gmm_ms / prof[0]["device_busy_ms"]
+        log(f"[{tag}] grouped GEMM: {gmm_ms:.2f} ms of {prof[0]['device_busy_ms']:.2f} ms device "
+            f"time ({100 * r['grouped_matmul_share_of_device_time']:.1f} %) in the decode chain")
+        by_path[tag] = launches
+        del engine
+        gc.collect()  # the timing wrappers hold the engine in a reference cycle
+        torch.cuda.empty_cache()
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return by_path
@@ -1515,6 +1781,55 @@ def time_paged_alibi(dev, checks, launches, max_err, timing, flush):
                 **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
 
 
+def grouped_library_call(lhs, rhs, gs):
+    """(label, fn) of the library yardstick: ``torch._grouped_mm`` (bf16, the
+    groups' end offsets) where this PyTorch has it, else a loop of one cuBLAS
+    matmul per group, each with its own host-read row range."""
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        return "torch._grouped_mm", lambda: torch._grouped_mm(lhs, rhs, offs=offs)
+    bounds = np.concatenate([[0], np.cumsum(gs.tolist())])
+
+    def loop():
+        return [lhs[a:b] @ rhs[g] for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))]
+    return "per-group cuBLAS loop", loop
+
+
+def time_grouped(dev, launches, max_err, timing):
+    """The grouped GEMM at Mixtral-8x7B's up projection (K 4096, N 14336,
+    bf16): a prefill (8192 routed rows: top-2 routing of 4096 tokens) and a
+    decode (32 routed rows: 16 tokens), beside its bound, its plain version
+    and the library call. Returns the kernel line's entry (prefill)."""
+    K, N = GMM_SHAPES["up"]
+    for label, tokens in (("prefill", 4096), ("decode", 16)):
+        sizes = routed_group_sizes(tokens)
+        lhs, rhs, gs = grouped_inputs(dev, sizes, K, N, torch.bfloat16)
+        m = lhs.shape[0]
+        # bytes: lhs and the output once, the weights of every group with rows
+        nbytes = 2 * (m * K + sum(1 for n in sizes if n) * K * N + m * N)
+        flops = 2 * m * K * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        lib_name, lib_fn = grouped_library_call(lhs, rhs, gs)
+        t = {"ms": time_fn(lambda: gmm_mod.grouped_matmul(lhs, rhs, gs), iters=40),
+             "plain_ms": time_fn(lambda: gmm_mod.grouped_matmul_plain(lhs, rhs, gs), iters=20),
+             "library_ms": time_fn(lib_fn, iters=40), "library": lib_name,
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        timing[f"grouped_matmul[{label}]"] = t
+        log(f"[time] grouped_matmul {label} [{m}, {K}] x [8, {K}, {N}] bf16, sizes {list(sizes)}: "
+            f"kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e12:.4f} TFLOP)")
+        del lhs, rhs, gs, lib_fn
+        torch.cuda.empty_cache()
+    d = timing["grouped_matmul[prefill]"]
+    return dict(name="grouped_matmul", route="cuda", source="deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                replaces="deepspeed_tpu/inference/model.py:234", launches=launches["grouped_matmul"],
+                max_abs_err=max_err["grouped_matmul"],
+                shape="Mixtral-8x7B up projection [8192, 4096] x [8, 4096, 14336] bf16, top-2 "
+                      "routed sizes",
+                **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+
 def phase_time(dev, checks, launches, max_err, results):
     """Phase 7: per-kernel device times at the main path's shapes."""
     l2_flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
@@ -1645,6 +1960,7 @@ def phase_time(dev, checks, launches, max_err, results):
     kernels += time_flash(dev, launches, max_err, timing)
     kernels += time_flash(dev, launches, max_err, timing, alibi=True)
     kernels += time_sparse(dev, launches, max_err, timing)
+    kernels.append(time_grouped(dev, launches, max_err, timing))
     results["timing"] = timing
     return kernels
 
@@ -1664,7 +1980,7 @@ def main(argv=None) -> int:
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
-               "paged_attention_alibi": 0.0,
+               "paged_attention_alibi": 0.0, "grouped_matmul": 0.0,
                **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
@@ -1713,6 +2029,17 @@ def main(argv=None) -> int:
     bloom_launches = phase_bloom_serve(dev, results)
     if bloom_launches is None:
         return 1
+
+    # ---- 3d. serving Mixtral-8x7B's widths at 16 of 32 layers through the
+    # grouped GEMM, on the memory the Bloom weights held
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[mixtral] before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the Bloom engines were freed")
+    mixtral_launches = phase_mixtral_serve(dev, results)
+    if mixtral_launches is None:
+        return 1
+    log(f"[mixtral] after the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
     # ---- 4. training Llama-3.2-1B
     llama = dataclasses.replace(PRESETS["llama3-1b"], dtype=torch.bfloat16)
@@ -1777,8 +2104,9 @@ def main(argv=None) -> int:
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
     # over the counted runs of the paths (serving Llama bf16 and quantised,
-    # the stochastic quantiser's call, serving Bloom, the four trainings)
-    by_path = {"serve": serve_launches, **quant_launches, **bloom_launches,
+    # the stochastic quantiser's call, serving Bloom and Mixtral, the four
+    # trainings)
+    by_path = {"serve": serve_launches, **quant_launches, **bloom_launches, **mixtral_launches,
                "train llama3-1b": llama_launches, "train bloom-560m": bloom_train_launches,
                "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}

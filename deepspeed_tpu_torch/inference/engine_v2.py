@@ -10,18 +10,23 @@ per admission wave, then one K-step decode chain over every active sequence
 (``paged.ragged_decode_chain``), shrinking the chain and then preempting the
 youngest sequence under KV-pool pressure, exactly as the JAX engine does.
 
+An MoE model (``num_experts > 0``, the Mixtral form) serves through
+``inference/model.py:_moe``: prefill and decode steps of at least 2E
+tokens, pads included, go through the hand-written grouped GEMM.
+
 Quantised serving: ``kv_cache_dtype`` 'int8' | 'fp8' stores the pool as
 1-byte codes plus one fp32 scale per (layer, slot, kv head) head vector
 (``inference/paged.py``), and ``quant.enabled`` quantises the weights before
 they are placed (``inference/woq.py``): int8/int4/fp8 codes and fp32 scales
-live on the device, and every weight read dequantises.
+live on the device, and every weight read dequantises. WOQ of an MoE
+model's experts is not ported and raises.
 
 The engine runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; on the CPU every kernel-backed op takes its
 plain PyTorch version. Settings beyond the dense single-device slice (a
 float ``kv_cache_dtype`` other than ``dtype``, prefix cache, speculative
-decoding, tensor or expert parallelism, disaggregated roles) raise
-``NotImplementedError``.
+decoding, tensor or expert parallelism, disaggregated roles, SLO tracking,
+the flight recorder, a refusing HBM check) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +67,9 @@ _DTYPES = {
 }
 # float dtype names the JAX engine accepts beside the ported ones
 _FLOAT_NAMES = ("fp16", "float16", "half")
+# the JAX engine's ``serving_slo`` fields at their defaults
+_SERVING_SLO_DEFAULTS = {"ttft_ms": None, "tpot_ms": None, "window_s": 30.0,
+                         "admission": "none", "admission_ttft_factor": 1.0}
 
 
 @dataclasses.dataclass
@@ -83,18 +91,42 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
     chunk_bucket: int = 16
     decode_chain: int = 8
     prefix_cache: bool = False
+    prefix_cache_fraction: float = 0.5
+    prefix_cache_hash_bytes: bool = True
     role: str = "mixed"
+    migration_depth: int = 2
     spec_decode: int = 0
+    spec_ngram: int = 2
+    # the JAX engine's pre-flight HBM-fit check ("warn" | "refuse" | "off"):
+    # the port makes none (an allocation that does not fit raises PyTorch's
+    # own out-of-memory error), so "refuse" is not ported
+    hbm_check: str = "warn"
+    # the JAX engine's ``serving_slo`` block, as a dict of its fields: its
+    # targets feed per-request latency tracking and router admission, neither
+    # of which is ported, so only JAX's defaults are accepted
+    serving_slo: dict = dataclasses.field(default_factory=dict)
+    flight_recorder: bool = False
 
     def __post_init__(self):
         if isinstance(self.quant, dict):
             self.quant = QuantConfig.from_dict(self.quant)
+        if self.hbm_check not in ("warn", "off"):
+            raise NotImplementedError(
+                f"RaggedInferenceConfig.hbm_check={self.hbm_check!r} is not ported to PyTorch "
+                "(the port makes no pre-flight HBM check: 'warn' | 'off')")
         out_of_slice = {
             "tp_size": (self.tp_size, 1),
             "ep_size": (self.ep_size, 1),
             "prefix_cache": (self.prefix_cache, False),
+            "prefix_cache_fraction": (self.prefix_cache_fraction, 0.5),
+            "prefix_cache_hash_bytes": (self.prefix_cache_hash_bytes, True),
             "role": (self.role, "mixed"),
+            "migration_depth": (self.migration_depth, 2),
             "spec_decode": (self.spec_decode, 0),
+            "spec_ngram": (self.spec_ngram, 2),
+            "serving_slo": ({**_SERVING_SLO_DEFAULTS, **self.serving_slo},
+                            _SERVING_SLO_DEFAULTS),
+            "flight_recorder": (self.flight_recorder, False),
         }
         for name, (got, want) in out_of_slice.items():
             if got != want:
@@ -132,17 +164,22 @@ class RaggedInferenceConfig(DeepSpeedConfigModel):
         return (self.kv_cache_dtype or self.dtype).lower()
 
 
-def _check_servable(cfg: TransformerConfig) -> None:
-    """The serving forward carries the dense sequential-block decoder in the
-    Llama form (RMSNorm, RoPE, SiLU-GLU, GQA, untied head) and the Bloom form
-    (LayerNorm, ALiBi, GELU, q/k/v/dense/MLP biases, tied head, embedding
-    LayerNorm), each setting read on its own (relu and exact GELU too).
-    ``TransformerConfig`` refuses parallel blocks, an LM-head bias, partial
-    or interleaved rotary and MoE at construction; learned positions, which
-    training accepts, are refused here."""
+def _check_servable(cfg: TransformerConfig, quant: QuantConfig) -> None:
+    """The serving forward carries the sequential-block decoder in the Llama
+    form (RMSNorm, RoPE, SiLU-GLU, GQA, untied head), with a dense or an MoE
+    FFN (the Mixtral form), and the Bloom form (LayerNorm, ALiBi, GELU,
+    q/k/v/dense/MLP biases, tied head, embedding LayerNorm), each setting
+    read on its own (relu and exact GELU too). ``TransformerConfig`` refuses
+    parallel blocks, an LM-head bias, partial or interleaved rotary and
+    PR-MoE at construction; learned positions, which training accepts, and
+    weight-only quantisation of an MoE model's experts are refused here."""
     if cfg.position == "learned":
         raise NotImplementedError(
             "TransformerConfig.position='learned': the PyTorch port does not serve it")
+    if cfg.num_experts and quant.enabled:
+        raise NotImplementedError(
+            "quant.enabled with num_experts > 0: weight-only quantisation of the MoE experts "
+            "is not ported to PyTorch")
 
 
 class InferenceEngineV2:
@@ -159,7 +196,7 @@ class InferenceEngineV2:
             config = {}
         if isinstance(config, dict):
             config = RaggedInferenceConfig.from_dict(config)
-        _check_servable(model_config)
+        _check_servable(model_config, config.quant)
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = config

@@ -36,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.inference.model import _attn_out, _logits, _mlp, _qkv
+from deepspeed_tpu_torch.inference.model import _attn_out, _logits, _mlp, _moe, _qkv
 from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -159,7 +159,9 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
                               k_scale=psk, v_scale=psv, alibi_slopes=slopes)
         x = x + _attn_out(lp["attn"], cfg, ctx)
         h = _apply_norm(lp["mlp_norm"], cfg, x)
-        x = x + _mlp(lp["mlp"], cfg, h)
+        # an MoE FFN sees all N * C tokens, pads included, as JAX's does: the
+        # count chooses its dispatch regime
+        x = x + (_moe(lp["moe"], cfg, h) if cfg.num_experts else _mlp(lp["mlp"], cfg, h))
 
     last = (new_lens.long() - 1).clamp_(min=0)
     return x[torch.arange(N, device=x.device), last]

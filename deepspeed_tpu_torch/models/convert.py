@@ -4,8 +4,10 @@
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), in either
 layout the JAX model has: stacked ``layers`` of shape ``[L, ...]``
 (``scan_layers=True``) or ``layer_{i}`` subtrees (``scan_layers=False``),
-which are stacked on the way in. It returns the port's parameters, checked
-leaf by leaf against the config's shapes. ``params_to_numpy`` is the
+which are stacked on the way in; an MoE model's ``moe`` subtree (router
+``gate.wg.kernel``, expert stacks ``experts.{w_gate,w_up,w_down}``) crosses
+like any other. It returns the port's parameters, checked leaf by leaf
+against the config's shapes. ``params_to_numpy`` is the
 inverse, in the layout ``cfg.scan_layers`` names, so that tests compare
 weights leaf by leaf. Both take or give numpy, so they need nothing of JAX.
 """

@@ -7,13 +7,15 @@ half-split RoPE, SiLU-GLU MLP, GQA, untied head, no biases) and GPT-2-style
 with flash or block-sparse attention (``attn_impl="sparse"``), and the Bloom
 form (LayerNorm, ALiBi, GELU MLP, biases, tied head, a LayerNorm after the
 embedding), which both the serving forward and ``CausalLM`` carry, the latter
-through the ALiBi form of the flash kernels. ALiBi with
+through the ALiBi form of the flash kernels. The Mixtral form (the Llama
+form with an MoE FFN) serves and does not train. ALiBi with
 ``attn_impl="sparse"`` (which JAX routes to its dense masked path) is refused
 by name. ``TransformerConfig`` keeps the JAX
-package's field names and defaults; a setting outside those families (MoE,
-parallel blocks, partial or interleaved rotary, an LM-head bias, remat,
-dropout) raises ``NotImplementedError`` at construction instead of being
-silently ignored.
+package's field names and defaults; a setting outside those families
+(parallel blocks, partial or interleaved rotary, an LM-head bias, remat,
+dropout, PR-MoE's residual expert or per-layer expert counts, FPDT, another
+sequence-parallel implementation) raises ``NotImplementedError`` at
+construction instead of being silently ignored.
 ``scan_layers`` only chooses the numpy layout of ``params_from_numpy`` /
 ``params_to_numpy``; the port's own tree is always stacked.
 
@@ -25,7 +27,14 @@ layers stacked ``[L, ...]``: ``embed.embedding [V, E]``, ``pos_embed [T, E]``
 ``.bias``), ``layers.mlp.{w_gate,w_up}.kernel [L, E, F]``,
 ``layers.mlp.w_down.kernel [L, F, E]`` (and biases), ``final_norm.scale
 [E]``, ``lm_head.kernel [E, V]`` (untied only), ``embed_norm.{scale,bias}
-[E]`` (``embed_norm``).
+[E]`` (``embed_norm``). An MoE config (``num_experts`` X > 0) has
+``layers.moe.gate.wg.kernel [L, E, X]``, ``layers.moe.experts.{w_gate,w_up}
+[L, X, E, F]`` and ``layers.moe.experts.w_down [L, X, F, E]`` in place of
+``layers.mlp``.
+
+MoE serves (``inference/model.py:_moe``) and does not train: ``CausalLM``
+refuses ``num_experts > 0`` by name (MoE training is the JAX package's
+``parallel/moe.py``).
 
 ``CausalLM`` is the training forward (``CausalLM.__call__`` of the JAX
 package): embedding, its LayerNorm (``embed_norm``), learned positions,
@@ -108,7 +117,29 @@ class TransformerConfig:
     sparse_embedding_grads: bool = False
     fused_ce: bool = True
     fused_ce_min_vocab: int = 4096
+    # MoE FFN (0 experts => dense MLP). Serving reads num_experts and
+    # moe_top_k only, as the JAX serving ``_moe`` does; the capacity, aux-loss,
+    # drop, metrics, dispatch and wire fields configure MoE training
+    # (``parallel/moe.py``), which is not ported, and are accepted at any value
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_min_capacity: int = 4
+    moe_aux_loss_weight: float = 0.01
+    moe_drop_tokens: bool = True
+    moe_use_residual: bool = False
+    moe_layer_experts: Optional[Tuple[int, ...]] = None
+    moe_metrics: bool = False
+    moe_dispatch: str = "auto"
+    moe_dispatch_algorithm: Optional[str] = None
+    moe_wire_codec: Optional[str] = None
+    moe_capacity_factor_max: Optional[float] = None
+    # FPDT long-context training and the sequence-parallel implementation:
+    # not ported, accepted at the JAX defaults only
+    fpdt_q_chunk: int = 1024
+    fpdt_kv_chunk: int = 1024
+    fpdt_offload: bool = False
+    sp_impl: str = "ulysses"
     dtype: torch.dtype = torch.float32  # activation dtype
 
     def __post_init__(self):
@@ -126,7 +157,15 @@ class TransformerConfig:
             "parallel_block": (self.parallel_block, False),
             "parallel_mlp_norm": (self.parallel_mlp_norm, False),
             "rope_interleaved": (self.rope_interleaved, False),
-            "num_experts": (self.num_experts, 0),
+            # PR-MoE's residual expert and per-layer expert counts: JAX's
+            # serving _moe reads neither, and a uniform [L, ...] stack cannot
+            # hold a pyramid
+            "moe_use_residual": (self.moe_use_residual, False),
+            "moe_layer_experts": (self.moe_layer_experts, None),
+            "fpdt_q_chunk": (self.fpdt_q_chunk, 1024),
+            "fpdt_kv_chunk": (self.fpdt_kv_chunk, 1024),
+            "fpdt_offload": (self.fpdt_offload, False),
+            "sp_impl": (self.sp_impl, "ulysses"),
             "remat": (self.remat, False),
             "dropout": (self.dropout, 0.0),
             "sparse_embedding_grads": (self.sparse_embedding_grads, False),
@@ -138,6 +177,9 @@ class TransformerConfig:
         if self.rotary_dim not in (None, self.dims_per_head):
             raise NotImplementedError(
                 f"TransformerConfig.rotary_dim={self.rotary_dim}: partial rotary is not ported")
+        if self.num_experts < 0 or (self.num_experts and not 1 <= self.moe_top_k <= self.num_experts):
+            raise ValueError(f"TransformerConfig: moe_top_k={self.moe_top_k} must lie in "
+                             f"[1, num_experts={self.num_experts}]")
         if self.num_heads % self.kv_heads:
             raise ValueError(f"num_heads={self.num_heads} not divisible by kv heads {self.kv_heads}")
         if self.dtype not in (torch.float32, torch.bfloat16):
@@ -176,11 +218,14 @@ class TransformerConfig:
         return 6 * self.num_params() + attn
 
     def num_params(self) -> int:
-        """The JAX package's count: projections, embedding (+ untied head) and
-        norm scales; biases and learned positions are not counted there."""
+        """The JAX package's count: projections, embedding (+ untied head),
+        norm scales and, for MoE, every expert and the router; biases and
+        learned positions are not counted there."""
         h, v, hd = self.hidden_size, self.vocab_size, self.dims_per_head
         qkv = h * hd * (self.num_heads + 2 * self.kv_heads) + hd * self.num_heads * h
         mlp = (3 if self.activation == "silu_glu" else 2) * h * self.intermediate_size
+        if self.num_experts:
+            mlp = self.num_experts * (mlp + h)
         total = v * h * (1 if self.tie_embeddings else 2) + h
         return total + self.num_layers * (qkv + mlp + 2 * h)
 
@@ -234,10 +279,19 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         dense(f"layers.attn.{name}", (L, E, heads, hd), (L, heads, hd) if qkv_bias else None)
     dense("layers.attn.wo", (L, H, hd, E), (L, E) if dense_bias else None)
     norm("layers.mlp_norm", (L,))
-    if cfg.activation == "silu_glu":
-        dense("layers.mlp.w_gate", (L, E, Fd), (L, Fd) if mlp_bias else None)
-    dense("layers.mlp.w_up", (L, E, Fd), (L, Fd) if mlp_bias else None)
-    dense("layers.mlp.w_down", (L, Fd, E), (L, E) if mlp_bias else None)
+    if cfg.num_experts:
+        # the JAX MoELayer's tree: router kernel, stacked expert weights (no biases)
+        X = cfg.num_experts
+        shapes["layers.moe.gate.wg.kernel"] = (L, E, X)
+        if cfg.activation == "silu_glu":
+            shapes["layers.moe.experts.w_gate"] = (L, X, E, Fd)
+        shapes["layers.moe.experts.w_up"] = (L, X, E, Fd)
+        shapes["layers.moe.experts.w_down"] = (L, X, Fd, E)
+    else:
+        if cfg.activation == "silu_glu":
+            dense("layers.mlp.w_gate", (L, E, Fd), (L, Fd) if mlp_bias else None)
+        dense("layers.mlp.w_up", (L, E, Fd), (L, Fd) if mlp_bias else None)
+        dense("layers.mlp.w_down", (L, Fd, E), (L, E) if mlp_bias else None)
     norm("final_norm", ())
     if not cfg.tie_embeddings:
         shapes["lm_head.kernel"] = (E, V)
@@ -282,10 +336,11 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device: Any = "cuda",
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    # fan-in: the contracted dims (E for q/k/v/gate/up/head and the embedding
-    # rows, H*hd for wo, F for w_down)
+    # fan-in: the contracted dims (E for q/k/v/gate/up/head, the router and the
+    # embedding rows, H*hd for wo, F for w_down and the experts' w_down)
     fan_in = {"layers.attn.wo.kernel": cfg.num_heads * cfg.dims_per_head,
-              "layers.mlp.w_down.kernel": cfg.intermediate_size}
+              "layers.mlp.w_down.kernel": cfg.intermediate_size,
+              "layers.moe.experts.w_down": cfg.intermediate_size}
     flat = {}
     for path, shape in param_shapes(cfg).items():
         t = torch.empty(shape, device=dev, dtype=dtype)
@@ -420,6 +475,10 @@ class CausalLM(torch.nn.Module):
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
+        if config.num_experts:
+            raise NotImplementedError(
+                f"TransformerConfig.num_experts={config.num_experts}: MoE training (the JAX "
+                "package's parallel/moe.py) is not ported to PyTorch; MoE configs serve only")
         if config.position == "alibi" and config.attn_impl == "sparse":
             raise NotImplementedError(
                 "TransformerConfig.position='alibi' with attn_impl='sparse' is not ported to "

@@ -9,12 +9,71 @@ import torch
 
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
 
 # Bound on the ALiBi form's lse error as a share of max(|lse|, 10): past a
 # keep-mask's end the bias moves a row's lse to ~10^2-10^3, where one fp32 ulp
 # (6e-5 at 10^3) is more than an absolute bound of 1e-5 allows. 1e-6 is about
 # 8 ulps there, and 1e-5 absolute where |lse| <= 10.
 LSE_ALIBI_REL = 1e-6
+
+# grouped_matmul kernel vs plain version, (rtol, atol) per element, atol as a
+# share of the output's RMS: |got - want| <= rtol |want| + atol rms(want).
+# bf16: both sum exact bf16 products in fp32, in another order, and round once
+# to bf16, so they differ by at most one output ulp (<= 2**-7 relative) where
+# the fp32 sums straddle a rounding point. fp32 (TF32 off): summation order
+# only, but the kernel sums each output's K products in one sequential fp32
+# chain, whose rounding error grows as sqrt(K) eps, where cuBLAS sums in a
+# tree: the first H100 run read 1.9e-5 of the RMS at K = 4096 and 3.5e-5 at
+# K = 14336, so the RMS share is 1e-4.
+GMM_TOL = {torch.bfloat16: (1e-2, 1e-3), torch.float32: (1e-5, 1e-4)}
+# a skewed set of group sizes: one group with half the rows, an empty one, a
+# single row, m = 4099 not a multiple of 8
+GMM_SKEWED_SIZES = (2050, 0, 1, 700, 500, 400, 300, 148)
+
+
+def routed_group_sizes(tokens: int, experts: int = 8, top_k: int = 2, hidden: int = 4096,
+                       seed: int = 0) -> tuple:
+    """Rows per expert of real top-k routing (numpy): ``tokens`` random
+    tokens through a random ``[hidden, experts]`` gate, softmax, top-k."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((tokens, hidden), dtype=np.float32)
+    logits = x @ (rng.standard_normal((hidden, experts), dtype=np.float32) * hidden ** -0.5)
+    top = np.argsort(-logits, axis=-1, kind="stable")[:, :top_k]
+    return tuple(int(n) for n in np.bincount(top.reshape(-1), minlength=experts))
+
+
+def grouped_inputs(dev, sizes, K: int, N: int, dtype: torch.dtype, rows=None, seed: int = 0):
+    """lhs ``[rows, K]`` (rows defaults to the sizes' sum) normal, rhs
+    ``[E, K, N]`` normal at std ``K**-0.5`` (a model's fan-in scale), made on
+    ``dev`` from a ``torch.Generator``, and group_sizes int32 ``[E]``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    m = sum(sizes) if rows is None else rows
+    lhs = torch.randn(m, K, generator=gen, device=dev, dtype=dtype)
+    rhs = torch.randn(len(sizes), K, N, generator=gen, device=dev, dtype=dtype) * K ** -0.5
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def check_grouped_matmul(lhs, rhs, group_sizes):
+    """The grouped_matmul kernel against its plain version on the same
+    inputs, by ``GMM_TOL``; rows past the sizes' sum must be exactly 0.
+    Returns (ok, max abs error, largest error as a share of its bound)."""
+    got = grouped_matmul(lhs, rhs, group_sizes)
+    if lhs.is_cuda:
+        torch.cuda.synchronize(lhs.device)
+    want = grouped_matmul_plain(lhs, rhs, group_sizes)
+    covered = int(group_sizes.clamp_min(0).sum())
+    if (got.shape != want.shape or got.dtype != lhs.dtype or not bool(torch.isfinite(got).all())
+            or not bool((got[covered:] == 0).all())):
+        return False, float("inf"), float("inf")
+    rtol, atol = GMM_TOL[lhs.dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = rtol * w.abs() + atol * float(w.square().mean().sqrt())
+    share = float((err / bound.clamp_min(1e-30)).max()) if err.numel() else 0.0
+    return share <= 1.0, float(err.max()) if err.numel() else 0.0, share
+
 
 def row_rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """Largest relative L2 error of a row vector (last dim). A row's norm is

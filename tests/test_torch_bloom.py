@@ -258,7 +258,8 @@ def test_woq_quantises_the_qkv_biases_as_jax_does(bloom):
 
 
 REFUSED = {"position": "learned", "parallel_block": True, "parallel_mlp_norm": True,
-           "lm_head_bias": True, "rotary_dim": 8, "rope_interleaved": True, "num_experts": 4}
+           "lm_head_bias": True, "rotary_dim": 8, "rope_interleaved": True,
+           "moe_use_residual": True, "moe_layer_experts": (4, 4)}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))

@@ -109,16 +109,22 @@ def test_init_params_is_seeded_and_shaped():
     {"position": "learned"}, {"parallel_block": True}, {"lm_head_bias": True},
 ])
 def test_unsupported_model_config_raises(model_over):
-    """MoE, parallel blocks and an LM-head bias are not ported at all;
-    learned positions (GPT-2) train but do not serve; the Bloom form's pieces
-    (ALiBi, the embedding LayerNorm) once served only, and now also build a
-    training spec whose forward gives a finite loss."""
-    if set(model_over) & {"num_experts", "parallel_block", "lm_head_bias"}:
+    """Parallel blocks and an LM-head bias are not ported at all; MoE serves
+    and does not train; learned positions (GPT-2) train but do not serve;
+    the Bloom form's pieces (ALiBi, the embedding LayerNorm) once served
+    only, and now also build a training spec whose forward gives a finite
+    loss."""
+    if set(model_over) & {"parallel_block", "lm_head_bias"}:
         with pytest.raises(NotImplementedError):
             TransformerConfig(**{**_tiny().__dict__, **model_over})
         return
     cfg = TransformerConfig(**{**_tiny().__dict__, **model_over})
     params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    if model_over == {"num_experts": 4}:
+        with pytest.raises(NotImplementedError, match="num_experts"):
+            causal_lm_spec(cfg)
+        InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
+        return
     if model_over == {"position": "learned"}:
         with pytest.raises(NotImplementedError):
             InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")

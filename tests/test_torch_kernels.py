@@ -34,7 +34,13 @@ bf16/fp32 one. The three block-sparse kernels (forward, dq, dkv) are held to
 their plain versions by the flash kernels' rule and limits, over blocks 16,
 32 and 64, D 64 and 128, causal and not, k and v at fewer heads than q or as
 many, and a layout with empty block rows (output, dq and the lse sentinel
-exact there).
+exact there). The grouped GEMM (``csrc/grouped_gemm.cu``) is held by
+``utils.checks.check_grouped_matmul`` (``GMM_TOL``: bf16 rtol 1e-2, one
+output ulp, and 1e-3 of the output's RMS; fp32 1e-5 and 1e-4 of the RMS, as
+the kernel sums K products in one sequential chain) on group sizes from real
+top-2 routing, a skewed set (half the rows in one group, an
+empty group, a single row, m not a multiple of 8) and K and N that are not
+multiples of 8 with rows past the sizes' sum (which must be 0).
 """
 
 import numpy as np
@@ -51,11 +57,16 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 )
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
+from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
 from deepspeed_tpu_torch.utils.checks import (
+    GMM_SKEWED_SIZES,
     LSE_ALIBI_REL,
     check_flash_kernels,
+    check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
+    grouped_inputs,
+    routed_group_sizes,
     row_rel_l2,
 )
 
@@ -459,3 +470,43 @@ def test_cpu_sparse_takes_the_plain_versions():
     out.backward(do)
     assert q.grad is not None and q.grad.shape == q.shape and k.grad.shape == k.shape
     assert (bs.sparse_fwd.launches, bs.sparse_bwd_dq.launches, bs.sparse_bwd_dkv.launches) == before
+
+
+# (group sizes, rows, K, N) of the grouped-GEMM checks
+GMM_CASES = {
+    "routed_512_tokens": (routed_group_sizes(512), None, 512, 1024),
+    "skewed_m4099": (GMM_SKEWED_SIZES, None, 256, 384),
+    "unaligned_tail_rows": ((0, 37, 1, 200, 0, 5, 64, 3), 320, 1001, 299),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_grouped_matmul_kernel_matches_plain(cuda_device, case, dtype):
+    sizes, rows, K, N = GMM_CASES[case]
+    lhs, rhs, gs = grouped_inputs(cuda_device, sizes, K, N, dtype, rows=rows)
+    before = grouped_matmul.launches
+    ok, max_abs, share = check_grouped_matmul(lhs, rhs, gs)
+    assert ok, (max_abs, share)
+    assert grouped_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_rejects_bad_inputs(cuda_device):
+    lhs, rhs, gs = grouped_inputs(cuda_device, (3, 5), 64, 64, torch.bfloat16)
+    with pytest.raises(TypeError):
+        grouped_matmul(lhs, rhs.float(), gs)
+    with pytest.raises(ValueError):  # int64 group sizes
+        grouped_matmul(lhs, rhs, gs.long())
+    with pytest.raises(ValueError):  # K mismatch
+        grouped_matmul(lhs[:, :32].contiguous(), rhs, gs)
+
+
+def test_cpu_grouped_matmul_takes_the_plain_version():
+    lhs, rhs, gs = grouped_inputs("cpu", (3, 0, 5), 16, 24, torch.float32, rows=10)
+    before = grouped_matmul.launches
+    out = grouped_matmul(lhs, rhs, gs)
+    torch.testing.assert_close(out, grouped_matmul_plain(lhs, rhs, gs))
+    torch.testing.assert_close(out[3:8], lhs[3:8] @ rhs[2])
+    assert bool((out[8:] == 0).all()) and grouped_matmul.launches == before
