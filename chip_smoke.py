@@ -29,6 +29,15 @@ Phases, any failure exits non-zero:
           rows in one group, an empty group, a single row, m = 4099), and at
           K 1001, N 299 with rows past the sizes' sum, each in bf16 and fp32
           (tolerances stated beside each check);
+2b. ops   the public op entry point (``deepspeed_tpu_torch.ops``): the
+          registry's op matrix printed, then ``ops.layer_norm`` and
+          ``ops.dispatch("layer_norm", "auto")`` (with a backward) on CUDA
+          tensors at Bloom-7B1's width ([8, 4096] and [8064, 4096], bf16 and
+          fp32), Bloom-560M's ([8192, 1024] bf16) and Falcon-7B's ([8064,
+          4544] bf16), the counters zeroed just before and read just after:
+          one LayerNorm kernel launch per call, the plain version never
+          called on a CUDA tensor; outputs held by RMS_TOL and gradients by
+          RMS_TOL scaled to the largest entry, against the plain version;
 3. serve  Llama-3-8B at full width and depth (random bf16 weights from a seed,
           a 4 GiB bf16 KV pool: 2048 x 16 slots) through
           ``InferenceEngineV2.generate``: 8 prompts of 32-1000 tokens, 64 new
@@ -57,7 +66,12 @@ Phases, any failure exits non-zero:
           prompts, settings and pool budget, over a bf16 pool, an int8 pool
           with int8 WOQ and an e4m3 pool: 30 ALiBi launches of the paged
           kernel per forward, the plain version never called, prefill logits
-          held to the plain versions, a decode chain profiled for each;
+          held to the plain versions, a decode chain profiled for each; on
+          the bf16 engine, an A/B that measures and switches nothing: the
+          model's plain LayerNorm replaced by ``ops.layer_norm`` for one
+          prefill step (logits within LOGITS_REL_L2 of the unreplaced run,
+          62 kernel launches a forward) and a profiled decode chain, between
+          two profiled chains without it;
    mixtral Mixtral-8x7B's widths (``MIXTRAL_8X7B``, the public config) at 16
           of its 32 layers (23.5 B parameters, 47 GB of random bf16 weights
           from seed 0: the full 93 GB does not fit the card) through
@@ -104,7 +118,9 @@ Phases, any failure exits non-zero:
           accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
           flash kernel per micro-step), one more step profiled;
 7. time   each kernel with CUDA events beside its bound, its plain version and
-          one PyTorch library call computing the same function (none for the
+          one PyTorch library call computing the same function (for the
+          LayerNorm kernel ``F.layer_norm`` at [8, 4096] and [8064, 4096]
+          bf16; none for the
           quantisers; for the sparse kernels SDPA with the layout expanded to
           a token mask; for the ALiBi forms SDPA with the bias and the causal
           mask as one float mask; for the grouped GEMM ``torch._grouped_mm``),
@@ -138,6 +154,7 @@ from torch.nn.attention import SDPBackend
 
 import deepspeed_tpu_torch
 import deepspeed_tpu_torch.inference.model as model_mod
+import deepspeed_tpu_torch.ops as torch_ops
 import deepspeed_tpu_torch.inference.paged as paged_mod
 import deepspeed_tpu_torch.inference.woq as woq_mod
 import deepspeed_tpu_torch.models.transformer as transformer_mod
@@ -152,7 +169,14 @@ from deepspeed_tpu_torch.ops import grouped_matmul as gmm_mod
 from deepspeed_tpu_torch.ops import norms as norms_mod
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import quant as quant_mod
-from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
+from deepspeed_tpu_torch.ops.norms import (
+    layer_norm,
+    layer_norm_reference,
+    pallas_layer_norm,
+    pallas_rms_norm,
+    rms_norm,
+    rms_norm_reference,
+)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_quant,
@@ -183,6 +207,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # fp32 and round once; fp32 differs by sum order, bf16 by at most one output
 # ulp (2**-8 relative)
 RMS_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# the public op ``ops.layer_norm`` on the card (phase 2b): (rows, width,
+# dtypes) at Bloom-7B1's width for a decode step and the 8-prompt prefill
+# (1008-token rows), at Bloom-560M's for a training micro-batch (4 x 2048)
+# and at Falcon-7B's for the prefill; held by RMS_TOL (the same rounding:
+# fp32 statistics, the variance in two passes, one rounding of the output)
+LN_SETS = {"bloom-7b1 decode": (8, 4096, (torch.bfloat16, torch.float32)),
+           "bloom-7b1 prefill": (8064, 4096, (torch.bfloat16, torch.float32)),
+           "bloom-560m micro-batch": (8192, 1024, (torch.bfloat16,)),
+           "falcon-7b prefill": (8064, 4544, (torch.bfloat16,))}
 # paged_attention kernel vs plain version: (rtol, atol) per element and a
 # limit on the relative L2 error of each query's output vector [hd],
 # ||got - want|| / ||want||, which holds a 1000-token row (outputs ~20x
@@ -317,7 +350,8 @@ def counted() -> dict:
     paged-attention wrappers count their ALiBi launches, over any pool, in
     ``paged_attention.alibi_launches``; each flash wrapper its own in
     ``<wrapper>.alibi_launches``."""
-    return {"rms_norm": (rms_norm, "launches"), "paged_attention": (paged_attention, "launches"),
+    return {"rms_norm": (rms_norm, "launches"), "layer_norm": (layer_norm, "launches"),
+            "paged_attention": (paged_attention, "launches"),
             "paged_attention_quant": (paged_attention_quant, "launches"),
             "paged_attention_alibi": (paged_attention, "alibi_launches"),
             **{name: (getattr(quant_mod, name), "launches") for name in QUANT_KERNELS},
@@ -792,6 +826,92 @@ def check_grouped(dev, max_err):
     return failures
 
 
+def compare_grads(got, want, dtype):
+    """A gradient against the plain version's: RMS_TOL with the absolute
+    part scaled by the largest |want| (dscale and dbias are sums over every
+    row). Returns (ok, max abs error)."""
+    rtol, atol = RMS_TOL[dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    scale = max(1.0, float(w.abs().max()))
+    ok = bool(torch.isfinite(g).all()) and bool((err <= atol * scale + rtol * w.abs()).all())
+    return ok, float(err.max())
+
+
+def phase_ops(dev, max_err, results):
+    """Phase 2b: the public op entry point on CUDA tensors. Prints the op
+    registry; then, with the counters zeroed just before and read just
+    after, calls ``ops.layer_norm`` and ``ops.dispatch("layer_norm",
+    "auto")`` (with a backward through autograd) on every ``LN_SETS`` shape:
+    one kernel launch per call, the plain version never called on a CUDA
+    tensor. Outputs and gradients are then held to the plain version's
+    (``layer_norm_reference`` and autograd through it). Returns the launch
+    counts, or None on failure."""
+    for name, impls in torch_ops.op_report().items():
+        log(f"[ops] op {name}: {', '.join(impls)}; auto -> "
+            f"{torch_ops.dispatch(name, 'auto').__name__}")
+    rng = np.random.default_rng(7)
+    cases = []
+    for label, (rows, dim, dtypes) in LN_SETS.items():
+        for dtype in dtypes:
+            x = rng.standard_normal((rows, dim), dtype=np.float32) * 3 + 1
+            s = 1 + 0.1 * rng.standard_normal(dim, dtype=np.float32)
+            b = 0.1 * rng.standard_normal(dim, dtype=np.float32)
+            g = rng.standard_normal((rows, dim), dtype=np.float32)
+            cases.append((label, dtype, *(torch.from_numpy(a).to(dev, dtype) for a in (x, s, b, g))))
+    plain_calls = []
+    real_plain = norms_mod.layer_norm_reference
+
+    def spy(x, *a, **k):
+        if x.is_cuda:
+            plain_calls.append(1)
+        return real_plain(x, *a, **k)
+
+    outs, calls = [], 0
+    zero_counts()
+    with mock.patch.object(norms_mod, "layer_norm_reference", spy):
+        for label, dtype, x, s, b, g in cases:
+            y = torch_ops.layer_norm(x, s, b, 1e-5)
+            leaves = [t.detach().requires_grad_(True) for t in (x, s, b)]
+            y2 = torch_ops.dispatch("layer_norm", "auto")(*leaves, 1e-5)
+            y2.backward(g)
+            calls += 2
+            outs.append((y, y2.detach(), [t.grad for t in leaves]))
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    expect = dict({k: 0 for k in launches}, layer_norm=calls)
+    log(f"[ops] {calls} calls of ops.layer_norm / dispatch('layer_norm', 'auto'): launches "
+        f"{launches['layer_norm']} (expected {calls}, every other kernel 0); plain version "
+        f"called {len(plain_calls)} times on CUDA tensors")
+    if launches != expect or plain_calls:
+        log("[ops] FAILED: the op did not launch its kernel once per call, or ran the plain version")
+        return None
+    failures = []
+    for (label, dtype, x, s, b, g), (y, y2, grads) in zip(cases, outs):
+        leaves = [t.detach().requires_grad_(True) for t in (x, s, b)]
+        want = real_plain(*leaves, 1e-5)
+        want.backward(g)
+        ok, mabs, mrel = compare_rms(y, want.detach(), dtype)
+        ok2, mabs2, _ = compare_rms(y2, want.detach(), dtype)
+        gres = [compare_grads(gt, t.grad, dtype) for gt, t in zip(grads, leaves)]
+        if dtype == torch.bfloat16:
+            max_err["layer_norm"] = max(max_err["layer_norm"], mabs, mabs2)
+        rtol, atol = RMS_TOL[dtype]
+        good = ok and ok2 and all(r[0] for r in gres)
+        log(f"[check] layer_norm {label} {list(x.shape)} {str(dtype)[6:]}: max_abs {mabs:.3e} "
+            f"(dispatch {mabs2:.3e}) max_rel {mrel:.3e}; grads dx/dscale/dbias max_abs "
+            f"{' / '.join(f'{r[1]:.3e}' for r in gres)}; tol rtol={rtol} atol={atol} (grads: atol "
+            f"x max|want|) {'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(f"layer_norm {label} {dtype}")
+    results["ops"] = {"op_report": torch_ops.op_report(), "calls": calls, "launches": launches,
+                      "max_abs_err_bf16": max_err["layer_norm"]}
+    if failures:
+        log(f"[ops] FAILED: {failures}")
+        return None
+    return launches
+
+
 SERVE_CONFIG = {"dtype": "bf16", "kv_block_size": 16, "kv_pool_bytes": KV_POOL_BYTES,
                 "max_seq_len": 2048, "decode_chain": 8}
 
@@ -877,9 +997,10 @@ def prefill_step_logits(dev, cfg, params, prompts, plain, kv_quant=None, routing
         with routes:
             return ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
     before = launch_counts()
-    with routes, mock.patch.object(transformer_mod, "rms_norm", rms_norm_reference), \
-            mock.patch.object(paged_mod, "paged_attention", paged_attention_reference), \
-            mock.patch.object(woq_mod, "dequantize_int8", quant_mod.dequantize_int8_reference), \
+    with routes, mock.patch.object(transformer_mod, "pallas_rms_norm", rms_norm_reference), \
+            mock.patch.object(paged_mod, "pallas_paged_attention", paged_attention_reference), \
+            mock.patch.object(woq_mod, "pallas_dequantize_int8",
+                              quant_mod.dequantize_int8_reference), \
             mock.patch.object(model_mod, "grouped_matmul", gmm_mod.grouped_matmul_plain):
         out = ragged_forward(params, cfg, pool, *arrs, bs)[0][:3].float()
     if launch_counts() != before:
@@ -1149,6 +1270,59 @@ def bloom_params(cfg, device, dtype=torch.bfloat16, seed=0):
     return params
 
 
+def bloom_layer_norm_ab(tag, dev, cfg, engine, prompts, logits, r):
+    """A measurement, no switch of the package: the model's LayerNorm
+    (``models/transformer.py:layer_norm``, plain PyTorch) replaced by the
+    op's "pallas" impl ``pallas_layer_norm`` (the kernel, called directly as
+    the model calls ``pallas_rms_norm``) for one prefill step, held to
+    the unreplaced run's logits by LOGITS_REL_L2 with 2L + 2 = 62 launches
+    per forward (the embedding norm, two a layer, the final norm), and for
+    a profiled decode chain, which runs beside the unreplaced chain profiled
+    just before and once more after. Returns False on failure."""
+
+    def op_norm(x, scale, bias, eps, dtype):
+        return pallas_layer_norm(x, scale, bias, eps).to(dtype)
+
+    per_forward = 2 * cfg.num_layers + 2
+    zero_counts()
+    with mock.patch.object(transformer_mod, "layer_norm", op_norm):
+        ab_logits = prefill_step_logits(dev, cfg, engine.params, prompts, plain=False)
+        prefill_launches = launch_counts()["layer_norm"]
+        zero_counts()
+        forwards0 = engine.model_forwards
+        prof = profile_chain(f"{tag} layer_norm op", engine, prompts)
+        chain_forwards = engine.model_forwards - forwards0
+        chain_launches = launch_counts()["layer_norm"]
+    rel = float((ab_logits - logits).norm() / logits.norm())
+    log(f"[{tag} layer_norm op] prefill-step logits against the plain LayerNorm's: rel L2 "
+        f"{rel:.3e} (bound {LOGITS_REL_L2}); layer_norm launches {prefill_launches} for one "
+        f"forward (expected {per_forward}), {chain_launches} over the chain's {chain_forwards} "
+        f"forwards (expected {per_forward * chain_forwards})")
+    if prof is None:
+        return False
+    again = profile_chain(f"{tag} again", engine, prompts)
+    if again is None:
+        return False
+    ln_ms = sum(ms for ms, _, name in prof[1] if "layer_norm_kernel" in name)
+    r["layer_norm_op_ab"] = {
+        "logits_rel_l2": rel, "launches_per_forward": prefill_launches,
+        "chain_forwards": chain_forwards, "chain_launches": chain_launches,
+        "profile_decode_chain_layer_norm_op": prof[0], "layer_norm_kernel_ms": ln_ms,
+        "profile_decode_chain_plain_again": again[0]}
+    for name, rec in (("plain LayerNorm", r["profile_decode_chain"]),
+                      ("ops.layer_norm", prof[0]), ("plain LayerNorm, again", again[0])):
+        log(f"[{tag} layer_norm op] chain with {name}: unprofiled wall "
+            f"{rec['unprofiled_wall_ms']:.2f} ms, profiled wall {rec['wall_ms']:.2f} ms, device "
+            f"kernels {rec['device_busy_ms']:.2f} ms, idle "
+            f"{100 * (1 - rec['device_busy_ms'] / rec['wall_ms']):.1f} %")
+    log(f"[{tag} layer_norm op] the LayerNorm kernel: {ln_ms:.3f} ms of the chain's device time")
+    if not (math.isfinite(rel) and rel <= LOGITS_REL_L2) or prefill_launches != per_forward \
+            or chain_launches != per_forward * chain_forwards or chain_forwards == 0:
+        log(f"[{tag} layer_norm op] FAILED: logits or launch counts off")
+        return False
+    return True
+
+
 def phase_bloom_serve(dev, results):
     """Phase 3c: Bloom-7B1 at full width and depth through
     InferenceEngineV2.generate, over a bf16 pool, an int8 pool with int8 WOQ
@@ -1237,6 +1411,8 @@ def phase_bloom_serve(dev, results):
         r["profile_decode_chain"], rows = prof
         paged_ms = sum(ms for ms, _, name in rows if "paged_attention_kernel" in name)
         r["paged_attention_share_of_device_time"] = paged_ms / prof[0]["device_busy_ms"]
+        if not over and not bloom_layer_norm_ab(tag, dev, cfg, engine, prompts, logits, r):
+            return None
         by_path[tag] = {k: launches[k] + init_launches[k] for k in launches}
         del engine, logits
         gc.collect()  # the timing wrappers hold the engine in a reference cycle
@@ -1848,7 +2024,7 @@ def phase_time(dev, checks, launches, max_err, results):
         lib = None
         if hasattr(F, "rms_norm"):
             lib = time_fn(lambda: F.rms_norm(x, (4096,), s, 1e-5))
-        t = {"ms": time_fn(lambda: rms_norm(x, s, 1e-5)),
+        t = {"ms": time_fn(lambda: pallas_rms_norm(x, s, 1e-5)),
              "plain_ms": time_fn(lambda: rms_norm_reference(x, s, 1e-5)),
              "bound_ms": bound, "library_ms": lib}
         timing[f"rms_norm[{rows},4096]"] = t
@@ -1861,6 +2037,33 @@ def phase_time(dev, checks, launches, max_err, results):
                         bound_by="bytes", shape="[8, 4096] bf16",
                         **{k: timing["rms_norm[8,4096]"][k]
                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+
+    for rows in (8, 8 * 1008):  # Bloom-7B1's width: one decode step; the 8-prompt prefill
+        x = torch.randn(rows, 4096, device=dev, dtype=torch.bfloat16) * 3 + 1
+        s = (1 + 0.1 * torch.randn(4096, device=dev)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(4096, device=dev)).to(torch.bfloat16)
+        # bytes: x read, y written, scale and bias read once; operations:
+        # ~8 fp32 a element (sum, subtract, square-add, subtract, two
+        # multiplies, add, convert)
+        nbytes = 2 * x.numel() * 2 + 2 * 4096 * 2
+        flops = 8 * x.numel()
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]) * 1e3
+        t = {"ms": time_fn(lambda: pallas_layer_norm(x, s, b, 1e-5)),
+             "plain_ms": time_fn(lambda: layer_norm_reference(x, s, b, 1e-5)),
+             "library_ms": time_fn(lambda: F.layer_norm(x, (4096,), s, b, 1e-5)),
+             "bound_ms": bound}
+        timing[f"layer_norm[{rows},4096]"] = t
+        log(f"[time] layer_norm [{rows}, 4096] bf16: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, F.layer_norm {t['library_ms']:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes: {nbytes / 1e6:.2f} MB; {nbytes / t['ms'] / 1e6:.1f} GB/s)")
+    kernels.append(dict(name="layer_norm", route="cuda",
+                        source="deepspeed_tpu_torch/csrc/layer_norm.cu",
+                        replaces="deepspeed_tpu/ops/pallas/norms.py:39",
+                        launches=launches["layer_norm"], max_abs_err=max_err["layer_norm"],
+                        bound_by="bytes", shape="[8064, 4096] bf16",
+                        **{k: timing["layer_norm[8064,4096]"][k]
+                           for k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+    del x, s, b
 
     for label, (batch, lens) in (("decode", checks["decode C=1, lens 1-1000"]),
                                  ("prefill", checks["prefill C=512, ragged, pad row"])):
@@ -1979,7 +2182,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
-    max_err = {"rms_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
+    max_err = {"rms_norm": 0.0, "layer_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
                "paged_attention_alibi": 0.0, "grouped_matmul": 0.0,
                **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
 
@@ -1998,6 +2201,11 @@ def main(argv=None) -> int:
     failures, checks = phase_checks(dev, max_err)
     if failures:
         log(f"[check] FAILED: {failures}")
+        return 1
+
+    # ---- 2b. the public op entry point: ops.layer_norm through its kernel
+    ops_launches = phase_ops(dev, max_err, results)
+    if ops_launches is None:
         return 1
 
     # ---- 3. serving, bf16 then quantised, on one set of weights; then its
@@ -2103,10 +2311,11 @@ def main(argv=None) -> int:
         return 1
 
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
-    # over the counted runs of the paths (serving Llama bf16 and quantised,
+    # over the counted runs of the paths (the op entry point's layer_norm
+    # calls, serving Llama bf16 and quantised,
     # the stochastic quantiser's call, serving Bloom and Mixtral, the four
     # trainings)
-    by_path = {"serve": serve_launches, **quant_launches, **bloom_launches, **mixtral_launches,
+    by_path = {"ops layer_norm": ops_launches, "serve": serve_launches, **quant_launches, **bloom_launches, **mixtral_launches,
                "train llama3-1b": llama_launches, "train bloom-560m": bloom_train_launches,
                "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}

@@ -11,7 +11,7 @@ processes a mixed prefill/decode ragged batch:
     is IN PLACE: the JAX pool is a functional array donated to each step;
     here the pool tensors are updated where they lie and the same
     ``PagedKVPool`` is returned.
-  - paged attention: ``ops.paged_attention`` (the hand-written CUDA kernel on
+  - paged attention: ``ops.pallas_paged_attention`` (the hand-written CUDA kernel on
     the card, the plain gather-then-attend version on the CPU), called after
     the KV write, so a prefill chunk attends to itself. The Bloom form
     (``position="alibi"``) passes its slopes, made once per head count and
@@ -45,7 +45,7 @@ from deepspeed_tpu_torch.models.transformer import (
     apply_qk_rope,
     layer_slice,
 )
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention
+from deepspeed_tpu_torch.ops.paged_attention import pallas_paged_attention
 from deepspeed_tpu_torch.ops.quant import fp8_block_math, int8_block_math
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -155,8 +155,9 @@ def _forward_hidden(params: Dict, cfg: TransformerConfig, pool: PagedKVPool,
                 # as bytes: index_copy_ has no e4m3 form
                 codes.view(torch.uint8).index_copy_(0, flat_slot, xq.view(torch.uint8))
                 scales.index_copy_(0, flat_slot, xs)
-        ctx = paged_attention(q, pk, pv, block_tables, positions, block_size, new_lens=new_lens,
-                              k_scale=psk, v_scale=psv, alibi_slopes=slopes)
+        ctx = pallas_paged_attention(q, pk, pv, block_tables, positions, block_size,
+                                     new_lens=new_lens, k_scale=psk, v_scale=psv,
+                                     alibi_slopes=slopes)
         x = x + _attn_out(lp["attn"], cfg, ctx)
         h = _apply_norm(lp["mlp_norm"], cfg, x)
         # an MoE FFN sees all N * C tokens, pads included, as JAX's does: the

@@ -7,9 +7,10 @@ JAX wrapper's ``astype`` does, so every weight read of the serving forward
 (``kernel.to(cfg.dtype)`` in ``models/transformer.py:_proj`` and
 ``inference/model.py:_attn_out``) takes a quantised leaf with no change:
 the codes are what lives in device memory, and each dequantised matrix lives
-only for its matmul. int8 dequantises through ``ops.quant.dequantize_int8``
-(the hand-written kernel on the card); int4 and fp8 through
-``ops.fp_quant``, plain PyTorch as the JAX package's jnp.
+only for its matmul. int8 dequantises through
+``ops.quant.pallas_dequantize_int8`` (the hand-written kernel on the card);
+int4 and fp8 through ``ops.fp_quant``'s "xla" impls, plain PyTorch as the
+JAX package's jnp. Each is called directly, not through the op registry.
 
 A leaf of the stacked ``'layers'`` subtree (``[L, ...]``) is quantised per
 layer slice, so blocks never cross a layer and ``layer_slice`` (``[i]``)
@@ -27,12 +28,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from deepspeed_tpu_torch.ops.fp_quant import (
-    dequantize_fp8,
-    dequantize_int4,
-    quantize_fp8,
-    quantize_int4,
+    xla_dequantize_fp8,
+    xla_dequantize_int4,
+    xla_quantize_fp8,
+    xla_quantize_int4,
 )
-from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
+from deepspeed_tpu_torch.ops.quant import pallas_dequantize_int8, pallas_quantize_int8
 
 _BLOCK = 2048
 _OFFLOAD = "ZeRO-Inference offload of the serving weights is not ported to PyTorch"
@@ -86,10 +87,10 @@ class WOQTensor:
 
     def _dequant(self, q: torch.Tensor, scale: torch.Tensor, shape, dtype) -> torch.Tensor:
         if self.fmt == "int8":
-            return dequantize_int8(q, scale, shape, dtype=dtype, block_size=_BLOCK)
+            return pallas_dequantize_int8(q, scale, shape, dtype=dtype, block_size=_BLOCK)
         if self.fmt == "int4":
-            return dequantize_int4(q, scale, dtype=dtype, block_size=_BLOCK).reshape(shape)
-        return dequantize_fp8(q, scale, dtype=dtype, block_size=_BLOCK)
+            return xla_dequantize_int4(q, scale, dtype=dtype, block_size=_BLOCK).reshape(shape)
+        return xla_dequantize_fp8(q, scale, dtype=dtype, block_size=_BLOCK)
 
     def to(self, dtype: torch.dtype) -> torch.Tensor:
         """The dense weight in ``dtype`` (the JAX wrapper's ``astype``)."""
@@ -117,11 +118,11 @@ def offload_params(params: Any, min_size: int = 1 << 16) -> Any:
 
 def _quantize_flat(x: torch.Tensor, fmt: str):
     if fmt == "int8":
-        return quantize_int8(x, block_size=_BLOCK)
+        return pallas_quantize_int8(x, block_size=_BLOCK)
     if fmt == "int4":
-        return quantize_int4(x, block_size=_BLOCK)
+        return xla_quantize_int4(x, block_size=_BLOCK)
     if fmt == "fp8":
-        return quantize_fp8(x, block_size=_BLOCK)
+        return xla_quantize_fp8(x, block_size=_BLOCK)
     raise ValueError(f"unknown WOQ format {fmt!r} (int8/int4/fp8)")
 
 

@@ -53,18 +53,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.attention import PORTED_IMPLS, causal_attention
 from deepspeed_tpu_torch.ops.block_sparse import layout_lists
 from deepspeed_tpu_torch.ops.cross_entropy import lm_head_cross_entropy
-from deepspeed_tpu_torch.ops.norms import rms_norm
-from deepspeed_tpu_torch.ops.rope import rope
+from deepspeed_tpu_torch.ops.flash_attention import flash_causal_attention
+from deepspeed_tpu_torch.ops.norms import pallas_rms_norm
+from deepspeed_tpu_torch.ops.rope import rope_half
 from deepspeed_tpu_torch.ops.sparse_attention import block_sparse_attention, get_sparsity_config
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 NORMS = ("rmsnorm", "layernorm")
 ACTIVATIONS = ("silu_glu", "gelu", "gelu_exact", "relu")
 POSITIONS = ("rope", "learned", "alibi")
-ATTN_IMPLS = PORTED_IMPLS + ("sparse",)
+# the JAX config's "xla" (materialised attention) is not taken at the model level yet
+ATTN_IMPLS = ("auto", "flash", "sparse")
 
 
 def _freeze_pairs(value) -> tuple:
@@ -400,7 +401,7 @@ def apply_qk_rope(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary embeddings on q ``[B, S, H, hd]`` and k ``[B, S, kvH, hd]``."""
     cos, sin = rope_tables(cfg.max_seq_len, q.shape[-1], cfg.rope_theta, q.device)
-    return rope(q, cos, sin, positions), rope(k, cos, sin, positions)
+    return rope_half(q, cos, sin, positions), rope_half(k, cos, sin, positions)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
@@ -417,7 +418,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
 def _apply_norm(norm_params: Dict[str, torch.Tensor], cfg: TransformerConfig,
                 x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "rmsnorm":
-        return rms_norm(x, norm_params["scale"], eps=cfg.norm_eps)
+        return pallas_rms_norm(x, norm_params["scale"], eps=cfg.norm_eps)
     return layer_norm(x, norm_params["scale"], norm_params["bias"], cfg.norm_eps, cfg.dtype)
 
 
@@ -500,8 +501,9 @@ class CausalLM(torch.nn.Module):
             out = block_sparse_attention(q, k, v, layout, block=block, pad_mask=mask, lists=lists)
         else:
             slopes = alibi_slopes(cfg.num_heads, q.device) if cfg.position == "alibi" else None
-            out = causal_attention(q, k, v, mask=mask, impl=cfg.attn_impl, alibi_slopes=slopes,
-                                   **dict(cfg.attn_kwargs or ()))
+            # "auto" and "flash" both name the flash path (ATTN_IMPLS)
+            out = flash_causal_attention(q, k, v, mask=mask, alibi_slopes=slopes,
+                                         **dict(cfg.attn_kwargs or ()))
         wo = p["wo"]["kernel"].to(cfg.dtype)  # [H, hd, E]
         H, hd, E = wo.shape
         y = (out.reshape(-1, H * hd) @ wo.reshape(H * hd, E)).reshape(*out.shape[:-2], E)

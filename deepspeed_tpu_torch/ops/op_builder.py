@@ -50,6 +50,10 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # x, scale, out, rows, dim, eps, x_dtype, scale_dtype, stream
         "ds_rms_norm": [_P, _P, _P, _I64, _I64, _F, _I, _I, _P],
     },
+    "layer_norm": {
+        # x, scale, bias, out, rows, dim, eps, x_dtype, param_dtype (scale and bias), stream
+        "ds_layer_norm": [_P, _P, _P, _P, _I64, _I64, _F, _I, _I, _P],
+    },
     "paged_attention": {
         # q, k_pool, v_pool, slopes (or NULL), block_tables, q_positions, new_lens,
         # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, stream

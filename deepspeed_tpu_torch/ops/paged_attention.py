@@ -2,7 +2,7 @@
 ``_xla_paged_attention`` and the Pallas ``ops/pallas/paged_attention.py:
 _decode_kernel``).
 
-``paged_attention`` is the one wrapper the serving forward calls. On a CPU
+``pallas_paged_attention`` is the one wrapper the serving forward calls. On a CPU
 tensor it runs ``paged_attention_reference``, the plain PyTorch version; on
 a CUDA tensor it launches the hand-written kernel ``csrc/paged_attention.cu``
 or raises. Layouts are the JAX package's: q ``[N, C, H, hd]``, one layer's
@@ -28,6 +28,13 @@ where ``slope * t`` at position 2047 (1,720 for head 0 of 32) has an ulp of
 ``paged_attention.alibi_launches`` (and not in the wrapper's own count), so
 a run can show that the ALiBi form ran.
 
+``pallas_paged_attention`` (the wrapper) is the "pallas" impl of the
+registry's ``paged_attention`` and ``paged_attention_reference`` its "xla"
+impl (JAX's ``inference/paged.py:108`` dense-gather version); the public
+``paged_attention`` picks one by ``impl`` ("auto": the wrapper). Serving
+calls the wrapper directly. Its launches count in
+``paged_attention.launches``.
+
 The two differ in one rounding, as the JAX pair does: the kernel scales q by
 ``hd**-0.5`` in q's dtype before the dot, the plain version divides the fp32
 scores. In fp32 that is ~1e-7 relative; in bf16 it moves a score by up to
@@ -43,12 +50,14 @@ import math
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.registry import dispatch, register
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 # quantised pool dtypes -> the C entry's kv code
 QUANT_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
+@register("paged_attention", "xla")
 def paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
                               new_lens, k_scale=None, v_scale=None, alibi_slopes=None):
     """Masked GQA attention of new queries against paged caches: gather the
@@ -175,8 +184,10 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
-                    new_lens: torch.Tensor, k_scale=None, v_scale=None, alibi_slopes=None):
+@register("paged_attention", "pallas")
+def pallas_paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
+                           new_lens: torch.Tensor, k_scale=None, v_scale=None,
+                           alibi_slopes=None):
     """GQA attention of q ``[N, C, H, hd]`` over one layer's paged pool.
 
     ``new_lens [N]`` int32 (live new tokens per row, 0 for a pad row) bounds
@@ -241,6 +252,15 @@ def paged_attention_quant(q, pool_k_l, pool_v_l, block_tables, q_positions, bloc
         raise RuntimeError(f"paged_attention_quant kernel launch failed: cudaError {err}")
     _count(paged_attention_quant, alibi_slopes)
     return out
+
+
+def paged_attention(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size,
+                    new_lens: torch.Tensor, k_scale=None, v_scale=None, alibi_slopes=None,
+                    impl: str = "auto"):
+    """The registry's ``paged_attention``: "pallas" (``auto``) or "xla"."""
+    return dispatch("paged_attention", impl)(q, pool_k_l, pool_v_l, block_tables, q_positions,
+                                             block_size, new_lens, k_scale, v_scale,
+                                             alibi_slopes)
 
 
 paged_attention.launches = 0

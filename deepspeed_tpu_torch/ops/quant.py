@@ -14,11 +14,18 @@ Three kernel wrappers, each with its plain version (``*_reference``) beside
 it. On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its hand-written kernel (``csrc/quantizer.cu``) or raises:
 
-- ``quantize_int8(x, block_size, stochastic=False, seed=0)`` replaces
-  ``_quant_kernel``; with ``stochastic=True`` it calls
+- ``pallas_quantize_int8(x, block_size, stochastic=False, seed=0)``
+  replaces ``_quant_kernel``; with ``stochastic=True`` it calls
   ``quantize_int8_stochastic``, which replaces ``_quant_kernel_stochastic``;
-- ``dequantize_int8(values, scales, shape, dtype, block_size)`` replaces
-  ``_dequant_kernel``.
+- ``pallas_dequantize_int8(values, scales, shape, dtype, block_size)``
+  replaces ``_dequant_kernel``.
+
+The two are the "pallas" impls of the registry's ``quantize_int8`` and
+``dequantize_int8``, the plain versions their "xla" impls (nearest rounding
+only, as JAX's jnp fallback). The public ``quantize_int8`` and
+``dequantize_int8`` pick one by ``impl`` ("auto": the wrapper); WOQ calls
+the wrappers directly. Launches count in ``quantize_int8.launches``,
+``quantize_int8_stochastic.launches`` and ``dequantize_int8.launches``.
 
 The flat input is padded with zeros to whole blocks of ``min(block_size,
 n)`` elements and the outputs are cut back to ``n``, as in
@@ -43,6 +50,7 @@ from typing import Sequence, Tuple
 import torch
 
 from deepspeed_tpu_torch.ops import op_builder
+from deepspeed_tpu_torch.ops.registry import dispatch, register
 
 DEFAULT_BLOCK = 2048
 FP8_MAX = 448.0  # float8_e4m3fn max normal
@@ -149,6 +157,14 @@ def quantize_int8_stochastic_reference(x: torch.Tensor, block_size: int = DEFAUL
     return q.reshape(-1)[:n], scale.reshape(-1)
 
 
+@register("quantize_int8", "xla")
+def _xla_quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK, stochastic: bool = False,
+                       seed: int = 0):
+    del stochastic, seed  # nearest rounding only, as JAX's jnp fallback
+    return quantize_int8_reference(x, block_size)
+
+
+@register("dequantize_int8", "xla")
 def dequantize_int8_reference(values: torch.Tensor, scales: torch.Tensor, shape: Sequence[int],
                               dtype: torch.dtype = torch.bfloat16,
                               block_size: int = DEFAULT_BLOCK) -> torch.Tensor:
@@ -205,8 +221,9 @@ def quantize_int8_stochastic(x: torch.Tensor, block_size: int = DEFAULT_BLOCK, s
     return out
 
 
-def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK, stochastic: bool = False,
-                  seed: int = 0):
+@register("quantize_int8", "pallas")
+def pallas_quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK,
+                         stochastic: bool = False, seed: int = 0):
     """Flat symmetric int8 block quantisation: ``(values int8 [n], scales fp32
     [nb])``, nearest rounding (half to even) unless ``stochastic``."""
     if stochastic:
@@ -220,9 +237,10 @@ def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK, stochastic: 
     return out
 
 
-def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape: Sequence[int],
-                    dtype: torch.dtype = torch.bfloat16,
-                    block_size: int = DEFAULT_BLOCK) -> torch.Tensor:
+@register("dequantize_int8", "pallas")
+def pallas_dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape: Sequence[int],
+                           dtype: torch.dtype = torch.bfloat16,
+                           block_size: int = DEFAULT_BLOCK) -> torch.Tensor:
     """int8 codes times their block's scale, rounded once to ``dtype``, in
     ``shape``."""
     if values.device.type == "cpu":
@@ -255,6 +273,19 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape: Sequence[
         raise RuntimeError(f"dequantize_int8 kernel launch failed: cudaError {err}")
     dequantize_int8.launches += 1
     return out
+
+
+def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK, stochastic: bool = False,
+                  seed: int = 0, impl: str = "auto"):
+    """The registry's ``quantize_int8``: "pallas" (``auto``) or "xla"."""
+    return dispatch("quantize_int8", impl)(x, block_size, stochastic, seed)
+
+
+def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape: Sequence[int],
+                    dtype: torch.dtype = torch.bfloat16, block_size: int = DEFAULT_BLOCK,
+                    impl: str = "auto") -> torch.Tensor:
+    """The registry's ``dequantize_int8``: "pallas" (``auto``) or "xla"."""
+    return dispatch("dequantize_int8", impl)(values, scales, shape, dtype, block_size)
 
 
 quantize_int8.launches = 0

@@ -156,8 +156,10 @@ def test_plain_pieces_match_jax_kernels(S, kvH, masked, alibi):
 
 def test_scheduling_kwargs_accepted_alibi_and_bias_refused():
     """Scheduling knobs change nothing; ALiBi slopes are accepted (and
-    change the output); a dense pair bias, ``impl="xla"`` and an unknown
-    keyword raise."""
+    change the output). A dense pair bias and ``impl="xla"`` once raised:
+    they now run the op's plain "xla" impl (held to JAX's XLA path in
+    ``test_torch_ops.py``), which agrees with the flash path where no row is
+    fully masked. An unregistered impl and an unknown keyword raise."""
     q, k, v, _, _ = _inputs(16, 2, 16, False)
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     base = causal_attention(qt, kt, vt)
@@ -166,10 +168,14 @@ def test_scheduling_kwargs_accepted_alibi_and_bias_refused():
     alibi = causal_attention(qt, kt, vt, alibi_slopes=slopes)
     torch.testing.assert_close(causal_attention(qt, kt, vt, alibi_slopes=slopes, block_q=8), alibi)
     assert alibi.shape == base.shape and not torch.allclose(alibi, base)
+    torch.testing.assert_close(causal_attention(qt, kt, vt, impl="xla", block_q=8), base,
+                               rtol=TOL, atol=TOL)
+    torch.testing.assert_close(causal_attention(qt, kt, vt, impl="xla", alibi_slopes=slopes),
+                               alibi, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(causal_attention(qt, kt, vt, bias=torch.zeros(4, 16, 16)), base,
+                               rtol=TOL, atol=TOL)
     with pytest.raises(NotImplementedError):
-        causal_attention(qt, kt, vt, bias=torch.zeros(4, 16, 16))
-    with pytest.raises(NotImplementedError):
-        causal_attention(qt, kt, vt, impl="xla")
+        causal_attention(qt, kt, vt, impl="triton")
     with pytest.raises(TypeError):
         causal_attention(qt, kt, vt, block_m=8)
 

@@ -9,7 +9,12 @@ the GPU machine included:
 tests build the kernels with nvcc and compare on the card; they skip without
 one. The others check, on the CPU, that a CPU tensor takes the plain version
 and launches nothing. Tolerances: rms_norm 1e-5 fp32 / 1e-2 bf16 (one output
-ulp); paged_attention 2e-5 fp32 / 2e-2 bf16 per element (q scaled in bf16
+ulp); layer_norm the same (both compute in fp32, the variance in two passes,
+and round once), over rows 1, 300 and 8064 and widths 64, 1024, 4096, 4097
+(the scalar tail after the vector body), 4544 (Falcon-7B), 16384 and 50000
+(past the 48 KB and the 160 KB shared-memory cache), a row start off a 16-byte
+boundary, a mixed-dtype scale/bias pair and channels offset by 100;
+paged_attention 2e-5 fp32 / 2e-2 bf16 per element (q scaled in bf16
 by the kernel, scores and p rounded to bf16 by the plain version), and a
 relative L2 error of each query's output vector of at most 1e-4 fp32 / 2e-2
 bf16, which holds a long row's small outputs as tightly as a short row's;
@@ -48,7 +53,13 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as fa
-from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_reference
+from deepspeed_tpu_torch.ops import norms
+from deepspeed_tpu_torch.ops.norms import (
+    layer_norm,
+    layer_norm_reference,
+    rms_norm,
+    rms_norm_reference,
+)
 from deepspeed_tpu_torch.ops import quant
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -122,6 +133,104 @@ def test_rms_norm_kernel_matches_plain(cuda_device, rows, dtype):
     assert rms_norm.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), rms_norm_reference(xt, st).float(), rtol=tol, atol=tol)
+
+
+def _ln_inputs(rows, dim, seed=3, offset=0.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((rows, dim)).astype(np.float32) * 3 + offset,
+            (1 + 0.1 * rng.standard_normal(dim)).astype(np.float32),
+            (0.1 * rng.standard_normal(dim)).astype(np.float32))
+
+
+def _ln_check(dev, x, scale, bias, tol):
+    xt, st, bt = (torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                  for a in (x, scale, bias))
+    before = layer_norm.launches
+    got = layer_norm(xt, st, bt)
+    torch.cuda.synchronize()
+    assert layer_norm.launches == before + 1
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    torch.testing.assert_close(got.float(), layer_norm_reference(xt, st, bt).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 300, 8064])
+@pytest.mark.parametrize("dim", [64, 1024, 4096, 4097, 4544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_matches_plain(cuda_device, rows, dim, dtype):
+    x, scale, bias = (torch.from_numpy(a).to(cuda_device, dtype) for a in _ln_inputs(rows, dim))
+    _ln_check(cuda_device, x, scale, bias, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_edges(cuda_device, dtype):
+    """Channels offset by 100 (a one-pass variance drifts there), a row start
+    one element off a 16-byte boundary, and a bf16 scale with an fp32 bias."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    x, scale, bias = _ln_inputs(300, 4096, offset=100.0)
+    _ln_check(cuda_device, torch.from_numpy(x).to(cuda_device, dtype),
+              torch.from_numpy(scale).to(cuda_device, dtype),
+              torch.from_numpy(bias).to(cuda_device, dtype), tol)
+    x, scale, bias = _ln_inputs(37, 1000)
+    buf = torch.from_numpy(np.concatenate([[0.0], x.reshape(-1)]).astype(np.float32))
+    shifted = buf.to(cuda_device, dtype)[1:].view(37, 1000)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    _ln_check(cuda_device, shifted, torch.from_numpy(scale).to(cuda_device, dtype),
+              torch.from_numpy(bias).to(cuda_device, dtype), tol)
+    _ln_check(cuda_device, torch.from_numpy(x).to(cuda_device, dtype),
+              torch.from_numpy(scale).to(cuda_device, torch.bfloat16),
+              torch.from_numpy(bias).to(cuda_device, torch.float32), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [16384, 50000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_wide_rows(cuda_device, dim, dtype):
+    """Rows whose shared-memory cache passes 48 KB (the kernel opts in to
+    more) and rows too wide for the cache (x is read again from L2)."""
+    x, scale, bias = (torch.from_numpy(a).to(cuda_device, dtype) for a in _ln_inputs(3, dim))
+    _ln_check(cuda_device, x, scale, bias, 1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_launches_and_refuses(cuda_device):
+    """One launch per forward, none for zero rows or for the backward (plain
+    PyTorch, as JAX's jnp ``_ln_p_bwd``), the plain version never called on
+    CUDA tensors; bad dtypes, shapes and layouts raise."""
+    x, scale, bias = (torch.from_numpy(a).to(cuda_device) for a in _ln_inputs(8, 256))
+    x.requires_grad_(True)
+    calls = []
+    real = norms.layer_norm_reference
+    norms.layer_norm_reference = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        before = layer_norm.launches
+        layer_norm(x, scale, bias).sum().backward()
+        assert layer_norm(x[:0], scale, bias).shape == (0, 256)
+        torch.cuda.synchronize()
+    finally:
+        norms.layer_norm_reference = real
+    assert layer_norm.launches == before + 1 and not calls
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    with pytest.raises(TypeError):
+        layer_norm(x.detach().half(), scale, bias)
+    with pytest.raises(ValueError):
+        layer_norm(x.detach(), scale[:-1], bias)
+    with pytest.raises(ValueError):
+        layer_norm(x.detach(), scale, bias.cpu())
+    with pytest.raises(ValueError):
+        norms.layer_norm_fwd(x.detach().t(), scale[:8], bias[:8])
+
+
+def test_cpu_layer_norm_takes_the_plain_version():
+    x, scale, bias = (torch.from_numpy(a) for a in _ln_inputs(5, 64))
+    before = layer_norm.launches
+    torch.testing.assert_close(layer_norm(x, scale, bias), layer_norm_reference(x, scale, bias))
+    torch.testing.assert_close(layer_norm(x, scale, bias),
+                               torch.nn.functional.layer_norm(x, (64,), scale, bias),
+                               rtol=1e-5, atol=1e-5)
+    assert layer_norm.launches == before
 
 
 @pytest.mark.cuda
