@@ -117,6 +117,26 @@ Phases, any failure exits non-zero:
           ``scan_layers=False, fused_ce=False``): micro 4, gradient
           accumulation 8, seq 1024, otherwise as phase 4 (12 launches of each
           flash kernel per micro-step), one more step profiled;
+6b. coll the collectives library with 4 ranks of one ``comm.RankGroup`` on the
+          card (the test layout of a single-controller group; no NVLink
+          crossed): the data-parallel gradient all-reduce of llama3-1b (rank
+          r's fp32 gradients from one backward of the port's model on its
+          own batch of 1 x 2048; 147 leaves, 1.4985 B elements a rank) leaf by
+          leaf with ``op="mean"`` through ``pallas_ring`` with the none, int8
+          and e4m3 wires, ``pallas_ring2d`` (2 x 2) int8 and the unfused
+          ``ring`` int8; the ZeRO-3 all-gather of the flat bf16 weights, a
+          quarter a rank, through ``pallas_ring`` none and int8; the MoE
+          dispatch all-to-all at Mixtral-8x7B's width (8192 x 4096 bf16 a
+          rank) through ``pallas_ring`` none, int8 and e4m3, the gather and
+          the all-to-all twice, the second call timed. Every call is
+          held to the same call through the plain versions (bit for bit), to
+          the exact result (the mean within n fp32 ulps of the sum of |x|, a
+          gather and an exact all-to-all exactly, lossy wires within JAX's
+          test bounds) and, after an all-reduce or gather, every rank to rank
+          0 byte for byte; the launch counts, zeroed just before and read
+          just after, must equal what the schedules imply
+          (``collective_launches``); one int8 all-reduce of the embedding's
+          gradient is profiled;
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (for the
           LayerNorm kernel ``F.layer_norm`` at [8, 4096] and [8064, 4096]
@@ -126,7 +146,10 @@ Phases, any failure exits non-zero:
           mask as one float mask; for the grouped GEMM ``torch._grouped_mm``),
           the flash kernels' ALiBi form at Bloom-560M's shape beside the form
           without it, the grouped GEMM at Mixtral's up projection for a
-          prefill (8192 routed rows) and a decode (32 routed rows).
+          prefill (8192 routed rows) and a decode (32 routed rows), the ring
+          hop kernels at the largest gradient leaf's chunk (65.7 M
+          elements: the int8 wire's relay beside ``Tensor.copy_``, one fused
+          int8 hop), their NVLink bounds stated, not measured.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -153,11 +176,14 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 import deepspeed_tpu_torch
+import deepspeed_tpu_torch.collectives.pallas_backend as hop_mod
 import deepspeed_tpu_torch.inference.model as model_mod
 import deepspeed_tpu_torch.ops as torch_ops
 import deepspeed_tpu_torch.inference.paged as paged_mod
 import deepspeed_tpu_torch.inference.woq as woq_mod
 import deepspeed_tpu_torch.models.transformer as transformer_mod
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.collectives.codecs import get_codec
 from deepspeed_tpu_torch.inference import InferenceEngineV2, init_pool, ragged_forward
 from deepspeed_tpu_torch.inference.paged import _kv_block_quant
 from deepspeed_tpu_torch.inference.ragged import StateManager, build_ragged_batch
@@ -187,11 +213,13 @@ from deepspeed_tpu_torch.utils.checks import (
     GMM_SKEWED_SIZES,
     GMM_TOL,
     LSE_ALIBI_REL,
+    bits_differ,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
     grouped_inputs,
+    plain_collective_kernels,
     routed_group_sizes,
 )
 
@@ -328,6 +356,21 @@ KV_CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 # and an edge set (sizes, rows, K, N): K and N not multiples of 8 (the
 # element-wise copy path), empty groups and 10 rows past the sizes' sum
 GMM_SHAPES = {"up": (4096, 14336), "down": (14336, 4096)}
+# the collectives phase: 4 ranks of one group on the card
+COLL_KERNELS = ("permute_leaves", "fused_hop")  # rows 12 and 13 (csrc/ring_hop.cu)
+COLL_RANKS = 4
+COLL_PRESET, COLL_SEQ = "llama3-1b", 2048  # rank r's gradients: one micro-step of 1 x 2048
+GRAD_WAYS = (("pallas_ring", "none"), ("pallas_ring", "int8"), ("pallas_ring", "fp8"),
+             ("pallas_ring2d", "int8"), ("ring", "int8"))
+GATHER_WAYS = (("pallas_ring", "none"), ("pallas_ring", "int8"))
+A2A_WAYS = (("pallas_ring", "none"), ("pallas_ring", "int8"), ("pallas_ring", "fp8"))
+MOE_A2A_ROWS = (8192, 4096)  # Mixtral-8x7B: 4096 tokens x top-2 routed rows of hidden 4096, bf16
+# lossy wires against the exact result, as a share of its largest magnitude:
+# JAX's own test bounds (all_reduce 0.15, gather 0.01 int8, all_to_all 0.02
+# int8 / 0.06 e4m3)
+COLL_LOSSY_BOUND = {"all_reduce": {"int8": 0.15, "fp8": 0.15}, "all_gather": {"int8": 0.01},
+                    "all_to_all": {"int8": 0.02, "fp8": 0.06}}
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 GMM_EDGE = ((0, 37, 1, 200, 0, 5, 64, 3), 320, 1001, 299)
 
 
@@ -358,7 +401,8 @@ def counted() -> dict:
             **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS},
             **{f"{name}_alibi": (getattr(fa, name), "alibi_launches") for name in FLASH_KERNELS},
             **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS},
-            "grouped_matmul": (gmm_mod.grouped_matmul, "launches")}
+            "grouped_matmul": (gmm_mod.grouped_matmul, "launches"),
+            **{name: (getattr(hop_mod, name), "launches") for name in COLL_KERNELS}}
 
 
 def launch_counts() -> dict:
@@ -2164,7 +2208,319 @@ def phase_time(dev, checks, launches, max_err, results):
     kernels += time_flash(dev, launches, max_err, timing, alibi=True)
     kernels += time_sparse(dev, launches, max_err, timing)
     kernels.append(time_grouped(dev, launches, max_err, timing))
+    kernels += time_collective_kernels(dev, launches, max_err, results["collectives"]["chunk"],
+                                       timing)
     results["timing"] = timing
+    return kernels
+
+# ------------------------------------------------------------------ collectives
+def collective_launches(op, alg, codec, n):
+    """Kernel launches of one collective over ``n`` ranks, from its schedule
+    (summed over the ranks). A ring reduce-scatter over m ranks: with a
+    fusable wire (int8/fp8, pallas) one fused hop to encode and m - 1 to
+    move a rank; with an exact wire m - 1 permute_leaves a rank; unfused
+    int8 encodes (row 7) and decodes (row 8) at each of m - 1 hops. A ring
+    all-gather over m ranks: m - 1 permute_leaves a rank (pallas); int8
+    encodes once and decodes m times (its own row too). The ring2d
+    all-reduce on 2 x 2: reduce-scatters over b = 2 and a = 2, gathers over
+    a and b. The all-to-all: a fusable wire n fused hops a rank, else n - 1
+    permute_leaves and, for int8, one encode and n - 1 decodes."""
+    pallas, fused = alg.startswith("pallas_"), codec in ("int8", "fp8")
+    c = {"permute_leaves": 0, "fused_hop": 0, "quantize_int8": 0, "dequantize_int8": 0}
+
+    def rs(m):
+        if pallas and fused:
+            c["fused_hop"] += n * m
+            return
+        c["permute_leaves"] += n * (m - 1) if pallas else 0
+        if codec == "int8":
+            c["quantize_int8"] += n * (m - 1)
+            c["dequantize_int8"] += n * (m - 1)
+
+    def gather(m):
+        c["permute_leaves"] += n * (m - 1) if pallas else 0
+        if codec == "int8":
+            c["quantize_int8"] += n
+            c["dequantize_int8"] += n * m
+
+    if op == "all_reduce":
+        if alg.endswith("ring2d"):
+            a, b = 2, 2
+            rs(b), rs(a), gather(a), gather(b)
+        else:
+            rs(n), gather(n)
+    elif op == "all_gather":
+        gather(n)
+    elif pallas and fused:
+        c["fused_hop"] += n * n
+    else:
+        c["permute_leaves"] += n * (n - 1) if pallas else 0
+        if codec == "int8":
+            c["quantize_int8"] += n
+            c["dequantize_int8"] += n * (n - 1)
+    return c
+
+
+def rank_gradients(dev, cfg, n, seq):
+    """Rank r's gradients of ``cfg`` from one real backward of the port's
+    model on rank r's seeded batch (1 x seq), in fp32 as the engine holds its
+    master gradients, leaf by leaf as the engine's autograd leaves (one per
+    layer); and the flat bf16 compute weights. Returns (grads[leaf][rank],
+    leaf names, flat weights)."""
+    masters = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=causal_lm_spec(cfg, example_seq_len=seq),
+        config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1, gradient_accumulation_steps=1),
+        model_parameters=masters, device=dev)
+    del masters
+    tree, leaves, index = engine._compute_params()
+    grads = [[] for _ in leaves]
+    for r in range(n):
+        ids = np.random.default_rng(100 + r).integers(0, cfg.vocab_size, (1, seq), dtype=np.int32)
+        out = engine.model.loss_fn(tree, {"input_ids": torch.from_numpy(ids).to(dev)})
+        loss = out[0] if isinstance(out, tuple) else out
+        for i, g in enumerate(torch.autograd.grad(loss.float(), leaves, allow_unused=True,
+                                                  materialize_grads=True)):
+            grads[i].append(g.detach().float())
+        del out, loss
+    names = [path if layer is None else f"{path}[{layer}]" for path, layer in index]
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves])
+    del tree, leaves, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads, names, flat
+
+
+def run_collective(op, xs, group, alg, codec):
+    if op == "all_reduce":
+        return comm.all_reduce(xs, group, op="mean", algorithm=alg, codec=codec)
+    if op == "all_gather":
+        return comm.all_gather(xs, group, algorithm=alg, codec=codec)
+    return comm.all_to_all(xs, group, split_axis=0, concat_axis=0, algorithm=alg, codec=codec)
+
+
+def error_vs_exact(op, codec, got0, xs, n):
+    """Rank 0's result against the exact one: (the largest error as a share
+    of the exact result's largest magnitude, whether it passes). An exact
+    mean must lie within n fp32 ulps of the sum of |x| over the ranks of
+    the float64 mean; an exact gather or all-to-all must equal its pieces
+    bit for bit, piece by piece (no float64 copy of a 1.5 B-element gather);
+    a lossy wire must stay within ``COLL_LOSSY_BOUND``."""
+    if op == "all_reduce":
+        exact = sum(x.double() for x in xs) / n
+        err = (got0.double() - exact).abs()
+        rel = float(err.max()) / (float(exact.abs().max()) or 1.0)
+        if codec != "none":
+            return rel, rel < COLL_LOSSY_BOUND[op][codec]
+        slack = n * 2.0 ** -24 * sum(x.double().abs() for x in xs) / n + 2.0 ** -149
+        return rel, bool((err <= slack).all())
+    pieces = got0.chunk(n)  # by source rank
+    want = xs if op == "all_gather" else [x.chunk(n)[0] for x in xs]
+    if codec == "none":
+        same = all(bits_differ([p], [w]) == 0 for p, w in zip(pieces, want))
+        return (0.0 if same else math.inf), same
+    scale = max(float(w.abs().max()) for w in want) or 1.0
+    rel = max(float((p.float() - w.float()).abs().max()) for p, w in zip(pieces, want)) / scale
+    return rel, rel < COLL_LOSSY_BOUND[op][codec]
+
+
+def check_collective(tag, op, alg, codec, xs, group, stats, max_err, repeat=1):
+    """One collective through the kernels, ``repeat`` times (the last timed:
+    a first call of a shape pays the rank streams' allocations), and through
+    the plain versions on the card: equal bit for bit, every rank's bytes
+    equal after an all-reduce or all-gather, an exact wire equal to the
+    float64 result within fp32 rounding (the mean) or exactly, a lossy one
+    within ``COLL_LOSSY_BOUND``. Returns a failure string or None."""
+    for _ in range(repeat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_collective(op, xs, group, alg, codec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with plain_collective_kernels():
+        want = run_collective(op, xs, group, alg, codec)
+    differ = bits_differ(got, want)
+    worst = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    del want
+    for name in COLL_KERNELS:
+        if collective_launches(op, alg, codec, group.n)[name]:
+            max_err[name] = max(max_err[name], worst)
+    replicas = 0 if op == "all_to_all" else sum(bits_differ([g], [got[0]]) for g in got)
+    rel, good = error_vs_exact(op, codec, got[0], xs, group.n)
+    if op == "all_to_all":  # the own block never crosses a link
+        own = xs[0].chunk(group.n)[0]
+        good = good and bits_differ([got[0][:own.shape[0]]], [own]) == 0
+    st = stats.setdefault(tag, {"wall_s": 0.0, "calls": 0, "bits_differ": 0, "replicas_differ": 0,
+                                "max_rel_err_vs_exact": 0.0, "largest_ms": 0.0, "largest_numel": 0})
+    st["wall_s"] += wall
+    st["calls"] += 1
+    st["bits_differ"] += differ
+    st["replicas_differ"] += replicas
+    st["max_rel_err_vs_exact"] = max(st["max_rel_err_vs_exact"], rel)
+    if xs[0].numel() > st["largest_numel"]:
+        st["largest_numel"], st["largest_ms"] = xs[0].numel(), wall * 1e3
+    del got
+    if differ or replicas or not good:
+        return (f"{tag}: {differ} elements differ from the plain versions (max abs {worst:.3e}), "
+                f"{replicas} replica elements differ, rel err vs exact {rel:.3e}")
+    return None
+
+
+def phase_collectives(dev, max_err, results):
+    """The collectives phase: 4 ranks of one ``RankGroup`` on the card, at
+    full width. (a) the data-parallel gradient all-reduce of llama3-1b
+    (rank r's fp32 gradients from a backward on its own batch), leaf by
+    leaf, ``op="mean"``, each of ``GRAD_WAYS``; (b) the ZeRO-3 parameter
+    all-gather of the flat bf16 weights, a quarter a rank, each of
+    ``GATHER_WAYS``; (c) the MoE dispatch all-to-all at Mixtral-8x7B's
+    width, each of ``A2A_WAYS``; (b) and (c) twice, the second call timed.
+    Every collective is held to the same call
+    through the plain versions and to the exact result (``check_collective``);
+    the counters are zeroed just before (a) and read just after (c) and
+    must equal ``collective_launches`` summed over the calls. Returns the
+    launch counts, or None on failure."""
+    cfg = dataclasses.replace(PRESETS[COLL_PRESET], dtype=torch.bfloat16)
+    n = COLL_RANKS
+    t0 = time.perf_counter()
+    grads, names, flat = rank_gradients(dev, cfg, n, COLL_SEQ)
+    sizes = [g[0].numel() for g in grads]
+    log(f"[coll] {COLL_PRESET} gradients of {n} ranks (micro 1 x {COLL_SEQ}, seeds 100-{99 + n}): "
+        f"{len(grads)} leaves, {sum(sizes) / 1e9:.4f} B elements ({4 * sum(sizes) / 1e9:.2f} GB "
+        f"fp32 a rank), largest {names[int(np.argmax(sizes))]} {max(sizes) / 1e6:.1f} M, in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    group = comm.RankGroup("dp", n, device=dev)
+    stats, failures, expect = {}, [], {}
+
+    def add_expect(op, alg, codec, calls):
+        for k, v in collective_launches(op, alg, codec, n).items():
+            expect[k] = expect.get(k, 0) + v * calls
+
+    zero_counts()
+    for i, leaf in enumerate(grads):
+        for alg, codec in GRAD_WAYS:
+            err = check_collective(f"all_reduce {alg} {codec}", "all_reduce", alg, codec, leaf,
+                                   group, stats, max_err)
+            if err:
+                failures.append(f"{names[i]}: {err}")
+        grads[i] = None
+    for alg, codec in GRAD_WAYS:
+        add_expect("all_reduce", alg, codec, len(names))
+    del grads
+    torch.cuda.empty_cache()
+    shard = -(-flat.numel() // n)
+    shards = list(torch.nn.functional.pad(flat, (0, shard * n - flat.numel())).chunk(n))
+    del flat
+    for alg, codec in GATHER_WAYS:
+        err = check_collective(f"all_gather {alg} {codec}", "all_gather", alg, codec, shards, group,
+                               stats, max_err, repeat=2)
+        failures += [err] if err else []
+        add_expect("all_gather", alg, codec, 2)
+    del shards
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = [torch.randn(MOE_A2A_ROWS, generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(n)]
+    for alg, codec in A2A_WAYS:
+        err = check_collective(f"all_to_all {alg} {codec}", "all_to_all", alg, codec, rows, group,
+                               stats, max_err, repeat=2)
+        failures += [err] if err else []
+        add_expect("all_to_all", alg, codec, 2)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = dict({k: 0 for k in launches}, **expect)
+    for tag, st in stats.items():
+        log(f"[coll] {tag}: {st['calls']} calls, wall {st['wall_s']:.4f} s (largest, "
+            f"{st['largest_numel'] / 1e6:.1f} M elements a rank: {st['largest_ms']:.3f} ms); "
+            f"kernels vs plain: {st['bits_differ']} elements differ; replicas: "
+            f"{st['replicas_differ']} differ; max rel err vs exact {st['max_rel_err_vs_exact']:.3e}")
+    log(f"[coll] launches {launches} (expected {want})")
+    # one profiled pallas_ring int8 all-reduce of the embedding's gradient:
+    # the wall not covered by kernels is the ranks' event waits and the
+    # host's launch gaps
+    emb = [torch.randn(max(sizes), generator=g, device=dev) for _ in range(n)]
+    wall, busy, plain_wall, top = device_profile(
+        lambda: comm.all_reduce(emb, group, op="mean", algorithm="pallas_ring", codec="int8"))
+    prof = log_profile("coll", f"a pallas_ring int8 all-reduce of {max(sizes) / 1e6:.1f} M elements "
+                       f"a rank (kernel time summed over the {n} ranks' streams)", wall, busy,
+                       plain_wall, top)
+    del emb, rows
+    torch.cuda.empty_cache()
+    results["collectives"] = {"ranks": n, "preset": COLL_PRESET, "leaves": len(names),
+                              "elements": sum(sizes), "largest_leaf": max(sizes), "stats": stats,
+                              "launches": launches, "expected": want, "profile": prof}
+    if failures:
+        log(f"[coll] FAILED: {failures[:10]}")
+        return None
+    if launches != want or not all(launches[k] for k in COLL_KERNELS):
+        log("[coll] FAILED: launch counts do not match the schedules")
+        return None
+    results["collectives"]["chunk"] = -(-max(sizes) // n)
+    return launches
+
+
+def time_collective_kernels(dev, launches, max_err, chunk, timing):
+    """Rows 12 and 13 at the largest leaf's chunk (its reduce-scatter rows):
+    the int8 wire's relay and one fused int8 hop, bytes read and written in
+    HBM against 3.35 TB/s (every rank shares the one card); the NVLink bound
+    of a 4-card run (the wire bytes at 450 GB/s each way) stated, not
+    measured."""
+    C, B, qb = hop_mod._chunk_geometry(chunk, get_codec("int8").block_size)
+    Lp = C * B
+    nb = Lp // qb
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(Lp, generator=g, device=dev) * 3
+    q, s = get_codec("int8").encode_rows(x[None])
+    wire = [q[0].contiguous(), s[0].contiguous()]
+    copies = [torch.empty_like(t) for t in wire]
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in wire)
+    kernels = []
+    t = {"ms": time_fn(lambda: hop_mod.permute_leaves(wire, dev), iters=50),
+         "plain_ms": time_fn(lambda: hop_mod.permute_leaves_plain(wire, dev), iters=50),
+         "library_ms": time_fn(lambda: [c.copy_(w) for c, w in zip(copies, wire)], iters=50),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "nvlink_bound_ms": nbytes / 2 / NVLINK_BYTES_PER_S * 1e3}
+    timing[f"permute_leaves[int8 wire {Lp}]"] = t
+    log(f"[time] permute_leaves int8 wire of {Lp} codes + {nb} scales: kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, Tensor.copy_ {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.2f} MB in HBM; "
+        f"{nbytes / t['ms'] / 1e6:.1f} GB/s); a 4-card NVLink hop's bound "
+        f"{t['nvlink_bound_ms']:.4f} ms (not measured)")
+    kernels.append(dict(name="permute_leaves", route="cuda",
+                        source="deepspeed_tpu_torch/csrc/ring_hop.cu",
+                        replaces="deepspeed_tpu/collectives/pallas_backend.py:237",
+                        launches=launches["permute_leaves"], max_abs_err=max_err["permute_leaves"],
+                        shape=f"int8 wire [{Lp}] + scales [{nb}]",
+                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+    y = torch.empty_like(x)
+    t32 = {"ms": time_fn(lambda: hop_mod.permute_leaves([x], dev), iters=20),
+           "library_ms": time_fn(lambda: y.copy_(x), iters=20),
+           "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+    timing[f"permute_leaves[fp32 wire {Lp}]"] = t32
+    log(f"[time] permute_leaves fp32 wire of {Lp}: kernel {t32['ms']:.4f} ms, Tensor.copy_ "
+        f"{t32['library_ms']:.4f} ms, bound {t32['bound_ms']:.4f} ms")
+
+    tgt = torch.randn(Lp, generator=g, device=dev)
+    own_q, own_s = torch.empty_like(wire[0]), torch.empty_like(wire[1])
+    hop = lambda: hop_mod.fused_hop(wire[0], wire[1], tgt, tgt, own_q, own_s, qb=qb)
+    plain = lambda: hop_mod.fused_hop_plain(wire[0], wire[1], tgt, tgt, own_q, own_s, qb=qb)
+    nbytes = (Lp + 4 * nb) + 2 * 4 * Lp + (Lp + 4 * nb)  # wire in, row read and written, wire out
+    flops = 8 * Lp  # multiply, add, abs, max, divide, round, clip, convert
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    t = {"ms": time_fn(hop, iters=50), "plain_ms": time_fn(plain, iters=10, warmup=2),
+         "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "nvlink_bound_ms": (Lp + 4 * nb) / NVLINK_BYTES_PER_S * 1e3}
+    timing[f"fused_hop[int8 {Lp}, qb {qb}]"] = t
+    log(f"[time] fused_hop int8 accumulate + requantise, row of {Lp} (qb {qb}): kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, no library call on one card (NCCL's "
+        f"all-reduce on a multi-card machine), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB; {nbytes / t['ms'] / 1e6:.1f} GB/s); a 4-card NVLink hop's bound "
+        f"{t['nvlink_bound_ms']:.4f} ms (not measured)")
+    kernels.append(dict(name="fused_hop", route="cuda", source="deepspeed_tpu_torch/csrc/ring_hop.cu",
+                        replaces="deepspeed_tpu/collectives/pallas_backend.py:321",
+                        launches=launches["fused_hop"], max_abs_err=max_err["fused_hop"],
+                        shape=f"int8, row [{Lp}], qb {qb}",
+                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     return kernels
 
 
@@ -2183,7 +2539,8 @@ def main(argv=None) -> int:
     log(card)  # the card's name and power limit, as nvidia-smi gives them
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "layer_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
-               "paged_attention_alibi": 0.0, "grouped_matmul": 0.0,
+               "paged_attention_alibi": 0.0, "grouped_matmul": 0.0, "permute_leaves": 0.0,
+               "fused_hop": 0.0,
                **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
@@ -2310,14 +2667,24 @@ def main(argv=None) -> int:
     if gpt2_launches is None:
         return 1
 
+    # ---- 6b. the collectives: 4 ranks of one group on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    coll_launches = phase_collectives(dev, max_err, results)
+    if coll_launches is None:
+        return 1
+    log(f"[coll] phase in {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
     # over the counted runs of the paths (the op entry point's layer_norm
     # calls, serving Llama bf16 and quantised,
     # the stochastic quantiser's call, serving Bloom and Mixtral, the four
-    # trainings)
+    # trainings, the collectives)
     by_path = {"ops layer_norm": ops_launches, "serve": serve_launches, **quant_launches, **bloom_launches, **mixtral_launches,
                "train llama3-1b": llama_launches, "train bloom-560m": bloom_train_launches,
-               "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches}
+               "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches,
+               "collectives": coll_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path
     kernels = phase_time(dev, checks, launches, max_err, results)

@@ -13,7 +13,10 @@ Ported so far: serving a dense Llama-style decoder through
 training Llama- and GPT-2-style decoders on one device through
 ``initialize(model=models.causal_lm_spec(cfg), config=...)`` and
 ``engine.train_batch`` (flash-attention forward, dq and dkv kernels, and
-the RMSNorm kernel with its backward).
+the RMSNorm kernel with its backward); later slices added the quantised,
+Bloom and Mixtral forms, block-sparse attention, the op entry point
+(``ops``) and the collectives library (``comm`` over a ``comm.RankGroup``,
+``collectives``) with its ring hop kernels.
 """
 
 from deepspeed_tpu_torch.runtime.engine_builder import initialize

@@ -106,6 +106,15 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # causal, dtype, stream
         "ds_sparse_bwd_dkv": [_P] * 10 + [_I] * 9 + [_P],
     },
+    "ring_hop": {
+        # srcs[k], dsts[k], bytes[k] (host arrays), k, stream
+        "ds_permute_leaves": [_P, _P, _P, _I, _P],
+        # up_q, up_s, tgt, accumulate, enc_src, own_q, own_s, n, qb,
+        # code (1 int8 | 2 e4m3), stream
+        "ds_fused_hop": [_P, _P, _P, _I, _P, _P, _P, _I64, _I, _I, _P],
+        # device, peer
+        "ds_enable_peer_access": [_I, _I],
+    },
 }
 
 

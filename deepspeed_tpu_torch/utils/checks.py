@@ -4,6 +4,10 @@ version by the same rule."""
 
 from __future__ import annotations
 
+import contextlib
+from typing import Sequence
+from unittest import mock
+
 import numpy as np
 import torch
 
@@ -177,3 +181,37 @@ def check_sparse_kernels(q, k, v, do, layout, block, causal):
                   and bool((dq.transpose(1, 2)[dead] == 0).all())
                   and bool((lse[dead] == bs.NEG_INF).all()))
     return readings, lse_err, dead_exact
+
+
+@contextlib.contextmanager
+def plain_collective_kernels():
+    """Inside: the collectives' kernel wrappers, the hop kernels (rows 12 and
+    13) and the int8 quantisers the int8 wire calls (rows 7 and 8), replaced
+    by their plain versions on every device, so that one collective can be
+    run through the kernels and through the plain versions on the card."""
+    from deepspeed_tpu_torch.collectives import pallas_backend as pb
+    from deepspeed_tpu_torch.ops import quant
+
+    def quantize(x, block_size=quant.DEFAULT_BLOCK, stochastic=False, seed=0, impl="auto"):
+        return quant.quantize_int8_reference(x, block_size)
+
+    def dequantize(values, scales, shape, dtype=torch.bfloat16, block_size=quant.DEFAULT_BLOCK,
+                   impl="auto"):
+        return quant.dequantize_int8_reference(values, scales, shape, dtype, block_size)
+
+    with mock.patch.multiple(pb, permute_leaves=pb.permute_leaves_plain,
+                             fused_hop=pb.fused_hop_plain), \
+            mock.patch.multiple(quant, quantize_int8=quantize, dequantize_int8=dequantize):
+        yield
+
+
+def bits_differ(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor]) -> int:
+    """How many elements of two rank lists differ in their bytes (0: equal bit
+    for bit; NaNs equal where their bits are)."""
+    diff = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return max(g.numel(), w.numel())
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[g.element_size()]
+        diff += int((g.contiguous().view(view) != w.contiguous().view(view)).sum())
+    return diff

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch import collectives, comm
 from deepspeed_tpu_torch.inference import InferenceEngineV2, RaggedInferenceConfig, init_pool
 from deepspeed_tpu_torch.models import (
     PRESETS,
@@ -82,6 +83,8 @@ def test_entry_points_default_to_cuda():
         init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_pool(cfg, 4, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        comm.RankGroup("dp", 4)
     eng = InferenceEngineV2(cfg, params, {"dtype": "fp32"}, device="cpu")
     assert eng.pool.k.device.type == "cpu"
     train_cfg = {"train_micro_batch_size_per_gpu": 1, "optimizer": {"type": "AdamW"}}
@@ -143,6 +146,24 @@ def test_unsupported_model_config_raises(model_over):
 def test_unsupported_engine_config_raises(engine_over):
     with pytest.raises(NotImplementedError):
         RaggedInferenceConfig.from_dict(engine_over)
+
+
+@pytest.mark.parametrize("case", ["auto", "codec_only", "compiled", "axis_tuple"])
+def test_unsupported_collective_raises(case):
+    """The collectives' selector, compiled schedules and multi-axis groups are
+    not ported: both entry points (the ``comm`` facade and the algorithmic
+    ``collectives`` library) refuse them."""
+    group = comm.RankGroup("dp", 4, device="cpu")
+    xs = [torch.ones(8) for _ in range(4)]
+    with pytest.raises(NotImplementedError):
+        if case == "auto":
+            comm.all_reduce(xs, group, algorithm="auto")
+        elif case == "codec_only":
+            comm.reduce_scatter(xs, group, codec="int8")
+        elif case == "compiled":
+            collectives.all_gather(xs, group, algorithm="compiled")
+        else:
+            collectives.all_to_all(xs, (group, group), split_axis=0, concat_axis=0)
 
 
 def test_unknown_engine_key_raises():

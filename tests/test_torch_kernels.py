@@ -45,13 +45,24 @@ output ulp, and 1e-3 of the output's RMS; fp32 1e-5 and 1e-4 of the RMS, as
 the kernel sums K products in one sequential chain) on group sizes from real
 top-2 routing, a skewed set (half the rows in one group, an
 empty group, a single row, m not a multiple of 8) and K and N that are not
-multiples of 8 with rows past the sizes' sum (which must be 0).
+multiples of 8 with rows past the sizes' sum (which must be 0). The ring
+hop kernels (``csrc/ring_hop.cu``) must equal their plain versions bit for
+bit: ``ds_permute_leaves`` copies bytes, and ``ds_fused_hop`` divides in IEEE
+fp32, rounds half to even (int8) or to nearest (e4m3), and multiplies and
+adds with the ``_rn`` intrinsics, never an FMA. They run as the collectives
+run them, every rank of a group on one card with its own stream: n = 2, 4
+and 8 ranks; rows of 1, 103 and 65,536 + 37 elements; blocks of 32 and 2048;
+int8 and e4m3 wires; the reduce-scatter (accumulate) and the all-to-all.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch import collectives as coll
+from deepspeed_tpu_torch.collectives import codecs as coll_codecs
+from deepspeed_tpu_torch.collectives import pallas_backend as hops
+from deepspeed_tpu_torch.comm import RankGroup
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import norms
 from deepspeed_tpu_torch.ops.norms import (
@@ -72,11 +83,13 @@ from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmu
 from deepspeed_tpu_torch.utils.checks import (
     GMM_SKEWED_SIZES,
     LSE_ALIBI_REL,
+    bits_differ,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
     grouped_inputs,
+    plain_collective_kernels,
     routed_group_sizes,
     row_rel_l2,
 )
@@ -619,3 +632,132 @@ def test_cpu_grouped_matmul_takes_the_plain_version():
     torch.testing.assert_close(out, grouped_matmul_plain(lhs, rhs, gs))
     torch.testing.assert_close(out[3:8], lhs[3:8] @ rhs[2])
     assert bool((out[8:] == 0).all()) and grouped_matmul.launches == before
+
+
+HOP_LENGTHS = (1, 103, 65536 + 37)
+
+
+def _ranked_rows(group, L, seed, scale=3.0):
+    """Every rank's [n, L] fp32 rows, with an all-zero block in rank 0's."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for r in range(group.n):
+        x = torch.from_numpy((rng.standard_normal((group.n, L)) * scale).astype(np.float32))
+        if r == 0:
+            x[0, :32] = 0
+        rows.append(x.to(group.devices[r]))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [True, False], ids=["reduce_scatter", "all_to_all"])
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("block", [32, 2048])
+@pytest.mark.parametrize("L", HOP_LENGTHS)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_fused_hop_kernel_matches_plain(cuda_device, n, L, block, codec, accumulate):
+    group = RankGroup("dp", n, device=cuda_device)
+    rows = _ranked_rows(group, L, seed=n * 7 + L % 13)
+    c = coll_codecs.get_codec(codec, block)
+
+    def run():
+        with group.joined():
+            if accumulate:
+                return hops.fused_ring_reduce_scatter_rows(rows, group, c)
+            return hops.fused_ring_all_to_all_rows(
+                rows, group, c, perm_k=lambda k: [(s, (s + k) % n) for s in range(n)])
+
+    before = hops.fused_hop.launches
+    got = run()
+    assert hops.fused_hop.launches == before + n * n  # an encode and n - 1 hops a rank
+    with plain_collective_kernels():
+        want = run()
+    torch.cuda.synchronize()
+    bad = bits_differ(got, want)
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert bad == 0, f"{bad} elements differ, max abs {worst}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["none", "int8", "fp8"])
+@pytest.mark.parametrize("L", HOP_LENGTHS)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_permute_leaves_kernel_matches_plain(cuda_device, n, L, codec):
+    """The all-gather relay (values and scales, encode once) and the exact
+    all-reduce's hops through ds_permute_leaves, against plain copies."""
+    group = RankGroup("dp", n, device=cuda_device)
+    xs = [r[0] for r in _ranked_rows(group, L, seed=n + L)]
+    before = hops.permute_leaves.launches
+    got = coll.all_gather(xs, group, algorithm="pallas_ring", codec=codec, block_size=32)
+    assert hops.permute_leaves.launches == before + n * (n - 1)
+    with plain_collective_kernels():
+        want = coll.all_gather(xs, group, algorithm="pallas_ring", codec=codec, block_size=32)
+    assert bits_differ(got, want) == 0
+    if codec == "none":
+        got = coll.all_reduce(xs, group, algorithm="pallas_ring")
+        with plain_collective_kernels():
+            want = coll.all_reduce(xs, group, algorithm="pallas_ring")
+        assert bits_differ(got, want) == 0
+        assert all(bits_differ([g], [got[0]]) == 0 for g in got)
+
+
+@pytest.mark.cuda
+def test_permute_leaves_kernel_edges(cuda_device):
+    """Leaves off a 16-byte boundary, of odd byte counts, of several dtypes
+    and one empty, in one launch; then refusals."""
+    base = torch.arange(4099, dtype=torch.int32, device=cuda_device)
+    leaves = [base.view(torch.uint8)[1:16383], base[3:].float(), base.to(torch.bfloat16)[5:],
+              base[:0], torch.randn(17, device=cuda_device)]
+    before = hops.permute_leaves.launches
+    got = hops.permute_leaves(leaves, cuda_device)
+    torch.cuda.synchronize()
+    assert hops.permute_leaves.launches == before + 1
+    assert bits_differ(got, leaves) == 0
+    assert all(g.data_ptr() != leaf.data_ptr() for g, leaf in zip(got[:3], leaves[:3]))
+    with pytest.raises(ValueError):
+        hops.permute_leaves([base[:4098].view(2, -1).t()], cuda_device)  # not contiguous
+    with pytest.raises(ValueError):
+        hops.permute_leaves([base] * 9, cuda_device)
+    q = torch.zeros(64, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(2, device=cuda_device)
+    row = torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError):  # 64 is not a whole number of blocks of 48
+        hops.fused_hop(q, s, row, None, None, None, qb=48)
+    with pytest.raises(TypeError):  # fp16 is no wire type
+        hops.fused_hop(q.half(), s, row, None, None, None, qb=32)
+
+
+def test_cpu_hops_take_the_plain_versions_and_count_nothing():
+    group = RankGroup("dp", 4, device="cpu")
+    before = (hops.permute_leaves.launches, hops.fused_hop.launches)
+    xs = [r[0] for r in _ranked_rows(group, 103, seed=1)]
+    out = coll.all_reduce(xs, group, algorithm="pallas_ring", codec="int8", block_size=32)
+    coll.all_gather(xs, group, algorithm="pallas_ring", codec="none")
+    assert (hops.permute_leaves.launches, hops.fused_hop.launches) == before
+    assert all(bits_differ([o], [out[0]]) == 0 for o in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,codec", [("ring", "none"), ("ring", "int8"), ("bidir", "none"),
+                                       ("rhd", "none"), ("ring2d", "int8"),
+                                       ("pallas_ring", "none"), ("pallas_ring", "int8"),
+                                       ("pallas_ring2d", "fp8")])
+def test_collectives_start_after_the_callers_stream(cuda_device, alg, codec):
+    """Inputs written on the caller's stream behind a ~25 ms spin, and
+    transposed views (a copying reshape inside the collective): the rank
+    streams must read them only after both. A collective whose per-rank
+    work ran on the caller's stream after the join read stale bytes here."""
+    group = RankGroup("dp", 4, device=cuda_device)
+    base = [torch.randn(1024, 4099, device=cuda_device) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    xs = [(b * 2).t() for b in base]
+    got = coll.all_reduce(xs, group, algorithm=alg, codec=codec)
+    gathered = coll.all_gather(xs, group, algorithm=alg, codec=codec, concat_axis=1)
+    torch.cuda.synchronize()
+    dense = [x.contiguous() for x in xs]
+    with plain_collective_kernels():
+        want = coll.all_reduce(dense, group, algorithm=alg, codec=codec)
+        want_g = coll.all_gather(dense, group, algorithm=alg, codec=codec, concat_axis=1)
+    assert bits_differ(got, want) == 0
+    assert bits_differ(gathered, want_g) == 0
