@@ -137,6 +137,20 @@ Phases, any failure exits non-zero:
           just after, must equal what the schedules imply
           (``collective_launches``); one int8 all-reduce of the embedding's
           gradient is profiled;
+6c. fused the fused GEMM collectives with 4 ranks of one group on the card, at
+          llama3-1b's MLP widths: x [4096, 2048] a rank, w_up [2048, 8192]
+          row-sharded (Ks 512), a row-parallel w_down shard [2048, 2048].
+          Rows 14 and 15 one launch at a time against their plain versions
+          (exact, int8 and e4m3 wires; integer payloads bit for bit, normal
+          ones by ``fused_gemm_close``; received shards, codes and scales bit for
+          bit); the forward and ``dx`` of ``sharded_matmul`` and the
+          row-parallel reduce-scatter through the kernels against the plain
+          versions, and the exact wire against the unfused ops; then, the
+          counters zeroed just before and read just after, 3 ZeRO-3 SGD
+          steps through ``sharded_matmul``, one with the int8 wire and
+          ``row_parallel_linear`` with and without it: n - 1 launches of each
+          row a rank and op, the trajectory falling and within 1e-4 of the
+          same steps unfused;
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (for the
           LayerNorm kernel ``F.layer_norm`` at [8, 4096] and [8064, 4096]
@@ -149,7 +163,9 @@ Phases, any failure exits non-zero:
           prefill (8192 routed rows) and a decode (32 routed rows), the ring
           hop kernels at the largest gradient leaf's chunk (65.7 M
           elements: the int8 wire's relay beside ``Tensor.copy_``, one fused
-          int8 hop), their NVLink bounds stated, not measured.
+          int8 hop), their NVLink bounds stated, not measured; the fused GEMM
+          hops at phase 6c's shapes (exact and int8 wires) beside their
+          fp32 operation bound, plain versions and ``addmm`` yardsticks.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -176,6 +192,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 import deepspeed_tpu_torch
+import deepspeed_tpu_torch.collectives.fused_gemm as fg_mod
 import deepspeed_tpu_torch.collectives.pallas_backend as hop_mod
 import deepspeed_tpu_torch.inference.model as model_mod
 import deepspeed_tpu_torch.ops as torch_ops
@@ -209,15 +226,20 @@ from deepspeed_tpu_torch.ops.paged_attention import (
     paged_attention_reference,
 )
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
+from deepspeed_tpu_torch.parallel import row_parallel_linear, sharded_matmul
+from deepspeed_tpu_torch.parallel.zeropp import DEFAULT_BLOCK as ZEROPP_BLOCK
 from deepspeed_tpu_torch.utils.checks import (
     GMM_SKEWED_SIZES,
     GMM_TOL,
     LSE_ALIBI_REL,
     bits_differ,
+    block_wire,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
+    fused_gemm_close,
+    fused_gemm_qb,
     grouped_inputs,
     plain_collective_kernels,
     routed_group_sizes,
@@ -371,6 +393,15 @@ MOE_A2A_ROWS = (8192, 4096)  # Mixtral-8x7B: 4096 tokens x top-2 routed rows of 
 COLL_LOSSY_BOUND = {"all_reduce": {"int8": 0.15, "fp8": 0.15}, "all_gather": {"int8": 0.01},
                     "all_to_all": {"int8": 0.02, "fp8": 0.06}}
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
+# the fused GEMM phase: 4 ranks of one group at llama3-1b's MLP widths
+FUSED_KERNELS = ("ag_hop", "rs_hop")  # rows 14 and 15 (csrc/fused_gemm.cu)
+FUSED_RANKS = 4
+FUSED_X = (4096, 2048)  # a rank's tokens x hidden
+FUSED_W_UP = (2048, 8192)  # w_up, row-sharded over the ranks: Ks = 512
+FUSED_W_ROW = (2048, 2048)  # a rank's rows of w_down [8192, 2048]: row_parallel_linear
+FUSED_WIRES = ("none", "int8", "fp8")
+FUSED_STEPS, FUSED_LR = 3, 100.0  # ZeRO-3 SGD on a mean-squared loss
+FUSED_REL = 1e-4  # the fused trajectory against the unfused one (JAX's test bound)
 GMM_EDGE = ((0, 37, 1, 200, 0, 5, 64, 3), 320, 1001, 299)
 
 
@@ -402,7 +433,8 @@ def counted() -> dict:
             **{f"{name}_alibi": (getattr(fa, name), "alibi_launches") for name in FLASH_KERNELS},
             **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS},
             "grouped_matmul": (gmm_mod.grouped_matmul, "launches"),
-            **{name: (getattr(hop_mod, name), "launches") for name in COLL_KERNELS}}
+            **{name: (getattr(hop_mod, name), "launches") for name in COLL_KERNELS},
+            **{name: (getattr(fg_mod, name), "launches") for name in FUSED_KERNELS}}
 
 
 def launch_counts() -> dict:
@@ -2210,6 +2242,7 @@ def phase_time(dev, checks, launches, max_err, results):
     kernels.append(time_grouped(dev, launches, max_err, timing))
     kernels += time_collective_kernels(dev, launches, max_err, results["collectives"]["chunk"],
                                        timing)
+    kernels += time_fused_kernels(dev, launches, max_err, timing)
     results["timing"] = timing
     return kernels
 
@@ -2523,6 +2556,310 @@ def time_collective_kernels(dev, launches, max_err, chunk, timing):
                         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
     return kernels
 
+# ------------------------------------------------------------------ fused GEMM collectives
+def fused_payload(shape, ints, g, dev):
+    if ints:
+        return torch.randint(-4, 5, shape, generator=g, device=dev).float()
+    return torch.randn(shape, generator=g, device=dev)
+
+
+def check_fused_hops(dev, max_err):
+    """Rows 14 and 15 one launch at a time against their plain versions on
+    the same inputs, at the phase's shapes (rank 2's hop: the shard held at
+    column block 2), every wire, integer and normal payloads: products bit
+    for bit on integers, else by ``fused_gemm_close``; the received shard and
+    every code and scale bit for bit (row 15's codes against the plain block
+    math of the kernel's own partial). Returns failure strings."""
+    n, (M, H), (_, F) = FUSED_RANKS, FUSED_X, FUSED_W_UP
+    Ks = FUSED_W_UP[0] // n
+    Kr, Nr = FUSED_W_ROW
+    Mb = M // n
+    g = torch.Generator(device=dev).manual_seed(11)
+    failures = []
+    for ints in (True, False):
+        for kind in FUSED_WIRES:
+            tag = f"{'ints' if ints else 'normal'} {kind}"
+            held = fused_payload((Ks, F), ints, g, dev)
+            up_vals = fused_payload((Ks, F), ints, g, dev)
+            qb = fused_gemm_qb(kind, Ks, F)
+            up = block_wire(kind, up_vals, qb)
+            for out_block in (False, True):
+                x = fused_payload((M, F) if out_block else (M, H), ints, g, dev)
+                y0 = fused_payload((M, H) if out_block else (M, F), ints, g, dev)
+                outs = []
+                for fn in (fg_mod.ag_hop, fg_mod.ag_hop_plain):
+                    y, recv = y0.clone(), torch.empty(Ks, F, device=dev)
+                    own = None if kind == "none" else (torch.empty_like(up[0]),
+                                                       torch.empty_like(up[1]))
+                    fn(x, held, y, 2 * Ks, up, recv, own, qb=qb, out_block=out_block)
+                    outs.append((y, recv, own))
+                (y, recv, own), (wy, wrecv, wown) = outs
+                err, ok = fused_gemm_close(y, wy, F if out_block else Ks)
+                ok = ok and (not ints or bits_differ([y], [wy]) == 0)
+                ok = ok and bits_differ([recv], [wrecv]) == 0
+                ok = ok and (own is None or bits_differ(list(own), list(wown)) == 0)
+                max_err["ag_hop"] = max(max_err["ag_hop"], err)
+                if not ok:
+                    failures.append(f"ag_hop {'out_block' if out_block else 'accumulate'} {tag}: "
+                                    f"max abs {err:.3e}")
+                del x, y0, outs, y, wy
+            del held, up_vals, up
+            x = fused_payload((M, Kr), ints, g, dev)
+            w = fused_payload((Kr, Nr), ints, g, dev)
+            qb = fused_gemm_qb(kind, Mb, Nr)
+            up = block_wire(kind, fused_payload((Mb, Nr), ints, g, dev), qb)
+            outs = []
+            for fn in (fg_mod.rs_hop, fg_mod.rs_hop_plain):
+                part = torch.empty(Mb, Nr, device=dev)
+                own = None if kind == "none" else (torch.empty(Mb * Nr, dtype=up[0].dtype, device=dev),
+                                                   torch.empty(Mb * Nr // qb, device=dev))
+                fn(x, w, Mb, up, part, own, qb=qb)
+                outs.append((part, own))
+            (part, own), (wpart, wown) = outs
+            err, ok = fused_gemm_close(part, wpart, Kr)
+            ok = ok and (not ints or bits_differ([part], [wpart]) == 0)
+            if own is not None:
+                ok = ok and bits_differ(list(own), list(block_wire(kind, part, qb))) == 0
+                ok = ok and (not ints or bits_differ(list(own), list(wown)) == 0)
+            max_err["rs_hop"] = max(max_err["rs_hop"], err)
+            if not ok:
+                failures.append(f"rs_hop {tag}: max abs {err:.3e}")
+            del x, w, up, outs, part, wpart
+    return failures
+
+
+def fused_ops(group, xs, gs, ws, a, w_row, kind):
+    """The three ops of the phase at one wire (``sharded_matmul``'s block):
+    the forward and ``dx`` of ``sharded_matmul`` (both all_gather_matmul
+    forms) and the row-parallel reduce-scatter."""
+    kw = dict(codec=None if kind == "none" else kind, block_size=ZEROPP_BLOCK)
+    return (fg_mod.all_gather_matmul(xs, ws, group, **kw),
+            fg_mod.all_gather_matmul(gs, ws, group, out_block=True, **kw),
+            fg_mod.matmul_reduce_scatter(a, w_row, group, **kw))
+
+
+def fused_sgd(group, xs, ts, w_shards, steps, quantize=False):
+    """``steps`` of ZeRO-3 SGD through ``sharded_matmul``: rank r's batch
+    ``xs[r]``, the weight row-sharded; a rank's loss is its mean squared
+    error. Returns (losses, the final shards)."""
+    ws, losses = [w.clone() for w in w_shards], []
+    for _ in range(steps):
+        ws = [w.detach().requires_grad_() for w in ws]
+        ys = sharded_matmul(xs, ws, group, quantize)
+        per_rank = [((y - t) * (y - t)).mean() for y, t in zip(ys, ts)]
+        sum(per_rank).backward()
+        losses.append(sum(float(lv.detach()) for lv in per_rank))
+        ws = [(w - FUSED_LR * w.grad).detach() for w in ws]
+        del ys, per_rank
+    return losses, ws
+
+
+def phase_fused(dev, max_err, results):
+    """The fused GEMM collectives with 4 ranks of one ``RankGroup`` on the
+    card, at llama3-1b's MLP widths: rows 14-15 one launch at a time against
+    their plain versions (``check_fused_hops``); the three ops through the
+    kernels against the same ops through the plain versions, every wire
+    (integer payloads: exact wires bit for bit and equal to the unfused
+    product; lossy wires by ``fused_gemm_close``); then, with the counters zeroed
+    just before and read just after, the main path: 3 steps of ZeRO-3 SGD
+    through ``sharded_matmul`` (exact wire), one with ``quantize=True`` (the
+    int8 wire) and ``row_parallel_linear`` with and without it; the launch
+    counts must equal n - 1 a rank and op for rows 14-15 (and the rows 12-13
+    launches that receive or encode outside them). The exact trajectory must
+    fall and lie within ``FUSED_REL`` of the same steps unfused (knob off).
+    Returns the launch counts, or None on failure."""
+    n = FUSED_RANKS
+    group = comm.RankGroup("tp", n, device=dev)
+    t0 = time.perf_counter()
+    failures = check_fused_hops(dev, max_err)
+    log(f"[fused] rows 14-15, one launch each against the plain versions at x {list(FUSED_X)}, "
+        f"w_up {list(FUSED_W_UP)} ({n} shards), w_row {list(FUSED_W_ROW)}, wires "
+        f"{list(FUSED_WIRES)}, integer and normal payloads: {len(failures)} failures, max abs "
+        f"err {max_err['ag_hop']:.3e} / {max_err['rs_hop']:.3e} ({time.perf_counter() - t0:.1f} s)")
+    M, H = FUSED_X
+    F = FUSED_W_UP[1]
+    g = torch.Generator(device=dev).manual_seed(12)
+    xs = [fused_payload((M, H), True, g, dev) for _ in range(n)]
+    gs = [fused_payload((M, F), True, g, dev) for _ in range(n)]
+    ws = list(fused_payload(FUSED_W_UP, True, g, dev).chunk(n))
+    a = [fused_payload((M, FUSED_W_ROW[0]), True, g, dev) for _ in range(n)]
+    w_row = [fused_payload(FUSED_W_ROW, True, g, dev) for _ in range(n)]
+    fg_mod.configure(enabled=True)
+    try:
+        for kind in FUSED_WIRES:
+            got = fused_ops(group, xs, gs, ws, a, w_row, kind)
+            with plain_collective_kernels():
+                want = fused_ops(group, xs, gs, ws, a, w_row, kind)
+            for name, K, got_op, want_op in zip(("all_gather_matmul", "dx", "reduce_scatter"),
+                                                 (FUSED_W_UP[0], F, FUSED_W_ROW[0]), got, want):
+                key = "rs_hop" if name == "reduce_scatter" else "ag_hop"
+                errs = [fused_gemm_close(a_, b_, K) for a_, b_ in zip(got_op, want_op)]
+                err = max(e for e, _ in errs)
+                max_err[key] = max(max_err[key], err)
+                bad = bits_differ(got_op, want_op) if kind == "none" else 0
+                if bad or not all(ok for _, ok in errs):
+                    failures.append(f"{name} {kind}: {bad} elements differ from the plain "
+                                    f"versions, max abs {err:.3e}")
+            if kind == "none":
+                fg_mod.configure(enabled=False)
+                unfused = fused_ops(group, xs, gs, ws, a, w_row, "none")
+                fg_mod.configure(enabled=True)
+                bad = sum(bits_differ(u, v) for u, v in zip(unfused, got))
+                if bad:
+                    failures.append(f"exact wire: {bad} elements differ from the unfused ops")
+            del got, want
+        torch.cuda.synchronize()
+        log(f"[fused] the ops through the kernels against the plain versions, wires "
+            f"{list(FUSED_WIRES)}: {len(failures)} failures so far; max abs err "
+            f"{max_err['ag_hop']:.3e} / {max_err['rs_hop']:.3e}")
+        del gs, a
+        # the main path, counted
+        xs = [torch.randn(FUSED_X, generator=g, device=dev) for _ in range(n)]
+        ts = [torch.randn(M, F, generator=g, device=dev) for _ in range(n)]
+        w0 = list((torch.randn(FUSED_W_UP, generator=g, device=dev) * 0.02).chunk(n))
+        xr = [torch.randn(M, FUSED_W_ROW[0], generator=g, device=dev) for _ in range(n)]
+        wr = [torch.randn(FUSED_W_ROW, generator=g, device=dev) * 0.02 for _ in range(n)]
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        losses, w_on = fused_sgd(group, xs, ts, w0, FUSED_STEPS)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / FUSED_STEPS
+        q_losses, _ = fused_sgd(group, xs, ts, w0, 1, quantize=True)
+        rows_exact = row_parallel_linear(xr, wr, group)
+        rows_int8 = row_parallel_linear(xr, wr, group, quantize=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        fg_mod.configure(enabled=False)
+    t1 = time.perf_counter()
+    l_off, w_off = fused_sgd(group, xs, ts, w0, FUSED_STEPS)
+    torch.cuda.synchronize()
+    step_off_s = (time.perf_counter() - t1) / FUSED_STEPS
+    rows_off = row_parallel_linear(xr, wr, group)
+    hops = n * (n - 1)
+    steps = FUSED_STEPS + 1
+    want = dict({k: 0 for k in launches}, ag_hop=2 * hops * steps, rs_hop=hops * (steps + 2),
+                fused_hop=3 * n + n, permute_leaves=FUSED_STEPS * n + n)
+    rel_loss = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, l_off))
+    rel_w = max(float((u - v).abs().max()) for u, v in zip(w_on, w_off)) / max(
+        float(v.abs().max()) for v in w_off)
+    rows_err = max(fused_gemm_close(u, v, FUSED_W_ROW[0])[0] for u, v in zip(rows_exact, rows_off))
+    exact = [sum(xr[r2][r * (M // n):(r + 1) * (M // n)] @ wr[r2] for r2 in range(n)) for r in range(n)]
+    q_rel = max(float((u - v).abs().max()) / float(v.abs().max()) for u, v in zip(rows_int8, exact))
+    log(f"[fused] ZeRO-3 SGD through sharded_matmul, {FUSED_STEPS} steps (x {list(FUSED_X)} a rank, "
+        f"w_up {list(FUSED_W_UP)} in {n} shards, lr {FUSED_LR}): losses fused {losses}, unfused "
+        f"{l_off}, rel diff {rel_loss:.3e}, weights rel diff {rel_w:.3e}; a step {step_s * 1e3:.1f} "
+        f"ms fused, {step_off_s * 1e3:.1f} ms unfused; the int8 wire's step loss {q_losses[0]:.6f}; "
+        f"row_parallel_linear fused vs unfused max abs {rows_err:.3e}, int8 wire rel err vs "
+        f"exact {q_rel:.3e}")
+    log(f"[fused] launches {launches} (expected {want})")
+    results["fused"] = {"ranks": n, "x": list(FUSED_X), "w_up": list(FUSED_W_UP),
+                        "w_row": list(FUSED_W_ROW), "losses_fused": losses, "losses_unfused": l_off,
+                        "rel_loss": rel_loss, "rel_w": rel_w, "step_ms_fused": step_s * 1e3,
+                        "step_ms_unfused": step_off_s * 1e3, "int8_step_loss": q_losses[0],
+                        "rows_int8_rel_err": q_rel, "launches": launches, "expected": want,
+                        "max_err": {k: max_err[k] for k in FUSED_KERNELS}}
+    if not losses[-1] < losses[0]:
+        failures.append(f"the fused trajectory does not fall: {losses}")
+    if rel_loss >= FUSED_REL or rel_w >= FUSED_REL or not fused_gemm_close(
+            torch.stack(rows_exact), torch.stack(rows_off), FUSED_W_ROW[0])[1]:
+        failures.append("fused against unfused: outside FUSED_REL")
+    if q_rel >= 2e-2:
+        failures.append(f"row_parallel_linear int8: rel err {q_rel:.3e} past JAX's 2e-2")
+    del xs, ts, w0, xr, wr, w_on, w_off
+    torch.cuda.empty_cache()
+    if failures:
+        log(f"[fused] FAILED: {failures[:10]}")
+        return None
+    if launches != want:
+        log("[fused] FAILED: launch counts do not match n - 1 a rank and op")
+        return None
+    return launches
+
+
+def time_fused_kernels(dev, launches, max_err, timing):
+    """Rows 14 and 15 at the phase's shapes, one launch each (the exact wire;
+    the int8 wire beside it), with CUDA events: the bound is 2 M N K fp32
+    operations at 67 TFLOP/s (both are compute-bound: bytes at 3.35 TB/s
+    are stated beside it), the plain version, and the yardstick of PyTorch
+    calls computing the same: ``Tensor.addmm_`` of the product and
+    ``Tensor.copy_`` of the received shard (row 14), ``torch.addmm`` of the
+    upstream partial and the product (row 15)."""
+    n, (M, H), (_, F) = FUSED_RANKS, FUSED_X, FUSED_W_UP
+    Ks = FUSED_W_UP[0] // n
+    Kr, Nr = FUSED_W_ROW
+    Mb = M // n
+    g = torch.Generator(device=dev).manual_seed(13)
+    kernels = []
+    x = torch.randn(M, H, generator=g, device=dev)
+    held = torch.randn(Ks, F, generator=g, device=dev)
+    y = torch.randn(M, F, generator=g, device=dev)
+    upstream = torch.randn(Ks, F, generator=g, device=dev)
+    recv = torch.empty_like(held)
+    xs = x[:, 2 * Ks:3 * Ks]
+    for kind in ("none", "int8"):
+        qb = fused_gemm_qb(kind, Ks, F)
+        up = block_wire(kind, upstream, qb)
+        own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
+        wire_b = sum(t.numel() * t.element_size() for t in up)
+        nbytes = (M * Ks + Ks * F + 2 * M * F + Ks * F) * 4 + wire_b * (2 if own else 1)
+        flops = 2 * M * Ks * F
+        t = {"ms": time_fn(lambda: fg_mod.ag_hop(x, held, y, 2 * Ks, up, recv, own, qb=qb), iters=20),
+             "plain_ms": time_fn(lambda: fg_mod.ag_hop_plain(x, held, y, 2 * Ks, up, recv, own, qb=qb),
+                                 iters=10, warmup=2),
+             "library_ms": time_fn(lambda: (y.addmm_(xs, held), recv.copy_(upstream)), iters=20),
+             "bound_ms": max(flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / PEAK_FLOPS[torch.float32] >= nbytes / HBM_BYTES_PER_S
+             else "bytes", "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        timing[f"ag_hop[{kind} x {M}x{Ks} @ {Ks}x{F}]"] = t
+        log(f"[time] ag_hop {kind} wire, y [{M}, {F}] += x[:, {Ks} cols] @ held [{Ks}, {F}] and the "
+            f"shard received: kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+            f"{t['plain_ms']:.4f} ms, addmm_ + copy_ {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {flops / 1e9:.2f} GFLOP; bytes alone "
+            f"{t['bytes_ms']:.4f} ms)")
+        if kind == "none":
+            kernels.append(dict(name="ag_hop", route="cuda", source="deepspeed_tpu_torch/csrc/fused_gemm.cu",
+                                replaces="deepspeed_tpu/collectives/fused_gemm.py:198",
+                                launches=launches["ag_hop"], max_abs_err=max_err["ag_hop"],
+                                shape=f"fp32 wire, x [{M}, {Ks}] of [{M}, {H}] @ held [{Ks}, {F}]",
+                                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}))
+    del x, held, y, upstream, recv, xs
+    x = torch.randn(M, Kr, generator=g, device=dev)
+    w = torch.randn(Kr, Nr, generator=g, device=dev)
+    part = torch.empty(Mb, Nr, device=dev)
+    prev = torch.randn(Mb, Nr, generator=g, device=dev)
+    xb = x[Mb:2 * Mb]
+    for kind in ("none", "int8"):
+        qb = fused_gemm_qb(kind, Mb, Nr)
+        up = block_wire(kind, prev, qb)
+        own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
+        wire_b = sum(t.numel() * t.element_size() for t in up)
+        nbytes = (Mb * Kr + Kr * Nr + Mb * Nr) * 4 + wire_b * (2 if own else 1)
+        flops = 2 * Mb * Kr * Nr
+        t = {"ms": time_fn(lambda: fg_mod.rs_hop(x, w, Mb, up, part, own, qb=qb), iters=20),
+             "plain_ms": time_fn(lambda: fg_mod.rs_hop_plain(x, w, Mb, up, part, own, qb=qb),
+                                 iters=10, warmup=2),
+             "library_ms": time_fn(lambda: torch.addmm(prev, xb, w, out=part), iters=20),
+             "bound_ms": max(flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S) * 1e3,
+             "bound_by": "operations" if flops / PEAK_FLOPS[torch.float32] >= nbytes / HBM_BYTES_PER_S
+             else "bytes", "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        timing[f"rs_hop[{kind} x {Mb}x{Kr} @ {Kr}x{Nr}]"] = t
+        log(f"[time] rs_hop {kind} wire, part [{Mb}, {Nr}] = rprev + x[{Mb} rows] @ w [{Kr}, {Nr}]"
+            f"{' and its codes' if own else ''}: kernel {t['ms']:.4f} ms "
+            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, addmm "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP; bytes alone {t['bytes_ms']:.4f} ms)")
+        if kind == "none":
+            kernels.append(dict(name="rs_hop", route="cuda", source="deepspeed_tpu_torch/csrc/fused_gemm.cu",
+                                replaces="deepspeed_tpu/collectives/fused_gemm.py:257",
+                                launches=launches["rs_hop"], max_abs_err=max_err["rs_hop"],
+                                shape=f"fp32 wire, x [{Mb}, {Kr}] @ w [{Kr}, {Nr}] + rprev",
+                                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}))
+    return kernels
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2540,7 +2877,7 @@ def main(argv=None) -> int:
     results = {"card": card, "device_name": torch.cuda.get_device_name(0)}
     max_err = {"rms_norm": 0.0, "layer_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
                "paged_attention_alibi": 0.0, "grouped_matmul": 0.0, "permute_leaves": 0.0,
-               "fused_hop": 0.0,
+               "fused_hop": 0.0, "ag_hop": 0.0, "rs_hop": 0.0,
                **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
 
     # ---- 1. build
@@ -2676,15 +3013,24 @@ def main(argv=None) -> int:
     log(f"[coll] phase in {time.perf_counter() - t0:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    # ---- 6c. the fused GEMM collectives: 4 ranks of one group on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fused_launches = phase_fused(dev, max_err, results)
+    if fused_launches is None:
+        return 1
+    log(f"[fused] phase in {time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
     # ---- 7. per-kernel timing at the main path's shapes; launches summed
     # over the counted runs of the paths (the op entry point's layer_norm
     # calls, serving Llama bf16 and quantised,
     # the stochastic quantiser's call, serving Bloom and Mixtral, the four
-    # trainings, the collectives)
+    # trainings, the collectives, the fused GEMM collectives)
     by_path = {"ops layer_norm": ops_launches, "serve": serve_launches, **quant_launches, **bloom_launches, **mixtral_launches,
                "train llama3-1b": llama_launches, "train bloom-560m": bloom_train_launches,
                "train llama3-1b sparse": sparse_launches, "train gpt2-125m": gpt2_launches,
-               "collectives": coll_launches}
+               "collectives": coll_launches, "fused gemm": fused_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path
     kernels = phase_time(dev, checks, launches, max_err, results)

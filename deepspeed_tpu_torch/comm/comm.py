@@ -9,7 +9,10 @@ argument, and returns a rank list. ``algorithm=`` / ``codec=`` route through
 kernels); ``algorithm=None`` with no codec is JAX's ``jax.lax`` branch, here
 the native reduction over the rank list. ``algorithm="auto"``, or a codec
 without an algorithm, asks the selector (``collectives/selector.py``), which
-is not ported, and raises. The multi-process control plane
+is not ported, and raises. An empty axis tuple (``axis=()``) is JAX's native
+no-op: each rank's value comes back as it is (the mean of an integer payload
+as float32, as ``lax.pmean`` gives it), and nothing is routed or quantised.
+The multi-process control plane
 (``init_distributed``, ``get_world_size``, ``get_rank``, ``barrier``) belongs
 with multi-process data parallelism and is not ported either.
 
@@ -120,7 +123,11 @@ def log_summary():
 
 
 def _group(axis, op_name: str):
+    """The rank group of ``axis``, or None for the empty axis tuple (the
+    native no-op)."""
     if isinstance(axis, (tuple, list)):
+        if not axis:
+            return None
         raise NotImplementedError(
             f"{op_name} over the axis tuple {tuple(axis)}: multi-axis groups "
             "(collectives/algorithms.py:_hier_all_reduce_axes) are not ported")
@@ -129,9 +136,22 @@ def _group(axis, op_name: str):
 
 def _record(op_name: str, group, xs: Sequence[torch.Tensor]) -> None:
     """One facade call into the comms logger: the per-rank bytes, as JAX
-    records a shard's."""
+    records a shard's (over the empty axis tuple: axis "" and world 1)."""
     x = xs[0]
-    comms_logger.record(op_name, group.axis, x.numel() * x.element_size(), group.n)
+    axis, world = ("", 1) if group is None else (group.axis, group.n)
+    comms_logger.record(op_name, axis, x.numel() * x.element_size(), world)
+
+
+def _mean_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype ``lax.pmean`` returns: a float payload keeps its dtype, an
+    integer or bool one comes back as float32."""
+    return dtype if dtype.is_floating_point or dtype.is_complex else torch.float32
+
+
+def _unchanged(xs) -> List[torch.Tensor]:
+    """A copy of each rank's value: the facade over the empty axis tuple,
+    where nothing crosses a wire."""
+    return [t.clone() for t in xs]
 
 
 def _algorithmic(algorithm: Optional[str], codec: Optional[str]):
@@ -165,6 +185,13 @@ def all_reduce(x, axis, op: str = "sum", *, algorithm: Optional[str] = None,
                codec: Optional[str] = None, block_size: Optional[int] = None):
     """Sum / mean / max / min over the group (reference ``all_reduce``)."""
     group = _group(axis, "all_reduce")
+    if group is None:  # JAX's facade routes nothing here (comm/comm.py:240-244)
+        _record(f"all_reduce_{op}", group, x)
+        if op in ("mean", "avg"):
+            return [t.to(_mean_dtype(t.dtype), copy=True) for t in x]
+        if op not in ("sum", "max", "min"):
+            raise ValueError(f"unsupported reduce op {op!r}")
+        return _unchanged(x)
     route = _algorithmic(algorithm, codec)
     _record(f"all_reduce_{op}", group, x)
     if route is not None:
@@ -173,8 +200,9 @@ def all_reduce(x, axis, op: str = "sum", *, algorithm: Optional[str] = None,
         return collectives.all_reduce(x, group, algorithm=route[0], codec=route[1], op=op,
                                       block_size=block_size)
     reducers = {"sum": torch.sum, "max": lambda t, d: t.amax(d), "min": lambda t, d: t.amin(d)}
-    if op in ("mean", "avg"):
-        return _on_each(group, lambda r: (_native_sum(x, group, r) / group.n).to(x[r].dtype))
+    if op in ("mean", "avg"):  # lax.pmean: psum, then a true division by the axis size
+        return _on_each(group, lambda r: (_native_sum(x, group, r) / group.n).to(
+            _mean_dtype(x[r].dtype)))
     if op not in reducers:
         raise ValueError(f"unsupported reduce op {op!r}")
     return _on_each(group, lambda r: _native_sum(x, group, r, reducers[op]).to(x[r].dtype))
@@ -187,6 +215,9 @@ def all_gather(x, axis, *, concat_axis: int = 0, tiled: bool = True,
     group = _group(axis, "all_gather")
     if not tiled and (algorithm is not None or codec is not None):
         raise ValueError("algorithmic all_gather supports tiled=True only")
+    if group is None:
+        _record("all_gather", group, x)
+        return _unchanged(x)
     route = _algorithmic(algorithm, codec)
     _record("all_gather", group, x)
     if route is not None:
@@ -205,6 +236,9 @@ def reduce_scatter(x, axis, *, scatter_axis: int = 0, tiled: bool = True,
     group = _group(axis, "reduce_scatter")
     if not tiled and (algorithm is not None or codec is not None):
         raise ValueError("algorithmic reduce_scatter supports tiled=True only")
+    if group is None:
+        _record("reduce_scatter", group, x)
+        return _unchanged(x)
     route = _algorithmic(algorithm, codec)
     _record("reduce_scatter", group, x)
     if route is not None:
@@ -232,6 +266,12 @@ def all_to_all(x, axis, *, split_axis: int, concat_axis: int, tiled: bool = True
     group = _group(axis, "all_to_all")
     if not tiled and (algorithm is not None or codec is not None):
         raise ValueError("algorithmic all_to_all supports tiled=True only")
+    if group is None:
+        if not tiled:  # lax.all_to_all over () asks for a split dim of size 1
+            raise ValueError("untiled all_to_all over the empty axis tuple: the split dim must "
+                             "equal the axis size, 1")
+        _record("all_to_all", group, x)
+        return _unchanged(x)
     route = _algorithmic(algorithm, codec)
     _record("all_to_all", group, x)
     if route is not None:
@@ -260,6 +300,8 @@ def ppermute(x, axis, perm):
     group = _group(axis, "ppermute")
     _record("ppermute", group, x)
     src = {d: s for s, d in perm}
+    if group is None:  # one rank on the axis: (0, 0) keeps the value, no pair gives zeros
+        return _unchanged(x) if 0 in src else [torch.zeros_like(t) for t in x]
     return _on_each(group, lambda r: x[src[r]].to(group.devices[r], copy=True) if r in src
                     else torch.zeros_like(x[r]))
 
@@ -267,5 +309,10 @@ def ppermute(x, axis, perm):
 def broadcast(x, axis, root: int = 0):
     """Every rank gets the root's tensor (reference ``broadcast``)."""
     group = _group(axis, "broadcast")
+    if group is None:
+        # JAX's broadcast indexes its gather's first dim (comm/comm.py:443-444),
+        # which over () is the payload's own first dim, not a no-op
+        raise NotImplementedError("broadcast over the empty axis tuple: JAX's facade returns "
+                                  "x[root] of the payload there, not the value; not ported")
     _record("broadcast", group, x)
     return _on_each(group, lambda r: x[root].to(group.devices[r], copy=True))

@@ -39,12 +39,11 @@
 // each lane wrote in part A (its own writes), so nothing is staged in shared
 // memory and any qb works (1 up to the row length).
 
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hop_wire.cuh"
 
 namespace {
+
+using hop_wire::WireCode;
 
 constexpr int kMaxLeaves = 8;
 constexpr int kThreads = 256;
@@ -73,28 +72,6 @@ __global__ void __launch_bounds__(kThreads) permute_leaves_kernel(LeafTable t) {
   }
 }
 
-template <int kCode> struct WireCode;
-template <> struct WireCode<1> {  // int8
-  static constexpr float kQmax = 127.f;
-  __device__ static float decode(const void* q, int64_t i) {
-    return static_cast<float>(static_cast<const int8_t*>(q)[i]);
-  }
-  __device__ static void encode(void* q, int64_t i, float v) {
-    static_cast<int8_t*>(q)[i] = static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f));
-  }
-};
-template <> struct WireCode<2> {  // float8_e4m3fn
-  static constexpr float kQmax = 448.f;
-  __device__ static float decode(const void* q, int64_t i) {
-    __nv_fp8_e4m3 f;
-    f.__x = static_cast<const __nv_fp8_storage_t*>(q)[i];
-    return static_cast<float>(f);
-  }
-  __device__ static void encode(void* q, int64_t i, float v) {
-    static_cast<__nv_fp8_storage_t*>(q)[i] = __nv_fp8_e4m3(v).__x;
-  }
-};
-
 template <int kCode>
 __global__ void __launch_bounds__(kThreads)
 fused_hop_kernel(const void* __restrict__ up_q, const float* __restrict__ up_s, float* tgt,
@@ -115,26 +92,15 @@ fused_hop_kernel(const void* __restrict__ up_q, const float* __restrict__ up_s, 
   if (own_q != nullptr) {
     float amax = 0.f;
     for (int e = lane; e < qb; e += 32) amax = fmaxf(amax, fabsf(enc_src[base + e]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float scale = amax == 0.f ? 1.f : amax / W::kQmax;
+    amax = hop_wire::warp_max(amax);
+    const float scale = hop_wire::block_scale<kCode>(amax);
     if (lane == 0) own_s[blk] = scale;
     for (int e = lane; e < qb; e += 32) W::encode(own_q, base + e, enc_src[base + e] / scale);
   }
 }
 
-// SM count of each device, queried once (0: not queried yet).
-constexpr int kMaxDevices = 64;
-int g_sms[kMaxDevices] = {};
-
 int grid_for(int64_t work) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices) {
-    if (g_sms[dev] == 0 &&
-        cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      g_sms[dev] = 132;
-    sms = g_sms[dev];
-  }
+  const int sms = hop_wire::sm_count();
   const int64_t want = (work + kThreads - 1) / kThreads;
   return static_cast<int>(want < 1 ? 1 : (want < 8LL * sms ? want : 8LL * sms));
 }

@@ -186,9 +186,11 @@ def check_sparse_kernels(q, k, v, do, layout, block, causal):
 @contextlib.contextmanager
 def plain_collective_kernels():
     """Inside: the collectives' kernel wrappers, the hop kernels (rows 12 and
-    13) and the int8 quantisers the int8 wire calls (rows 7 and 8), replaced
-    by their plain versions on every device, so that one collective can be
-    run through the kernels and through the plain versions on the card."""
+    13), the fused GEMM hops (rows 14 and 15) and the int8 quantisers the
+    int8 wire calls (rows 7 and 8), replaced by their plain versions on every
+    device, so that one collective can be run through the kernels and
+    through the plain versions on the card."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
     from deepspeed_tpu_torch.collectives import pallas_backend as pb
     from deepspeed_tpu_torch.ops import quant
 
@@ -201,6 +203,7 @@ def plain_collective_kernels():
 
     with mock.patch.multiple(pb, permute_leaves=pb.permute_leaves_plain,
                              fused_hop=pb.fused_hop_plain), \
+            mock.patch.multiple(fg, ag_hop=fg.ag_hop_plain, rs_hop=fg.rs_hop_plain), \
             mock.patch.multiple(quant, quantize_int8=quantize, dequantize_int8=dequantize):
         yield
 
@@ -215,3 +218,36 @@ def bits_differ(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor]) -> in
         view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[g.element_size()]
         diff += int((g.contiguous().view(view) != w.contiguous().view(view)).sum())
     return diff
+
+
+def fused_gemm_close(got: torch.Tensor, want: torch.Tensor, K: int):
+    """Rows 14-15 against their plain versions: fp32 products of K terms in
+    another order (the kernel: one FMA chain over K; cuBLAS: its own). Each
+    element within 1e-5 relative and 1e-6 x sqrt(K) of the largest |want|.
+    Returns (max abs error, ok)."""
+    err = (got - want).abs()
+    atol = 1e-6 * max(float(want.abs().max()), 1.0) * K ** 0.5
+    return float(err.max()), bool((err <= atol + 1e-5 * want.abs()).all())
+
+
+def block_wire(kind: str, values: torch.Tensor, qb: int):
+    """A wire slot holding ``values``: the fp32 tensor itself for ``"none"``,
+    else int8 / e4m3 codes and fp32 scales over flat blocks of ``qb``, by the
+    plain block math."""
+    from deepspeed_tpu_torch.collectives import pallas_backend as pb
+
+    if kind == "none":
+        return (values,)
+    q = torch.empty(values.numel(), dtype=pb.WIRE_DTYPES[kind], device=values.device)
+    s = torch.empty(values.numel() // qb, device=values.device)
+    pb.fused_hop_plain(None, None, None, values.reshape(-1), q, s, qb=qb)
+    return q, s
+
+
+def fused_gemm_qb(kind: str, rows: int, cols: int, block_size=None) -> int:
+    """The qb of a fused GEMM hop of ``rows`` x ``cols`` (JAX's chunk geometry)."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    c = fg._resolve_codec(None if kind == "none" else kind, block_size)
+    return fg._wire_math(c, (rows // fg._chunks_of(rows)) * cols)[1]
+

@@ -345,6 +345,70 @@ def test_facade_native_all_reduce_matches_lax(group, op):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ("int32", "float32", "bfloat16"))
+def test_facade_native_mean_matches_pmean_dtype(group, dtype):
+    """The native mean returns what ``lax.pmean`` returns: float32 means of an
+    int32 payload (not the sum cast back to int32), a float payload's mean in
+    its own dtype. Sums of the integer payload over 8 ranks are exact in
+    every dtype here, and so are their eighths."""
+    x = _int_payload((N, 37), 48)
+    want = _run(lambda v: jax.lax.pmean(v[0].astype(dtype), "dp")[None], x)
+    tdtype = {"int32": torch.int32, "float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    got = comm.all_reduce(shards_from_numpy(x, group, tdtype), group, op="mean")
+    assert str(got[0].dtype) == f"torch.{want.dtype}"
+    np.testing.assert_array_equal(shards_to_numpy(got), want.astype(np.float32))
+
+
+EMPTY_AXIS_OPS = {
+    "all_reduce_sum": (lambda v: jdist.all_reduce(v, (), op="sum"),
+                       lambda xs: comm.all_reduce(xs, (), op="sum")),
+    "all_reduce_mean": (lambda v: jdist.all_reduce(v, (), op="mean"),
+                        lambda xs: comm.all_reduce(xs, (), op="mean")),
+    "all_reduce_max": (lambda v: jdist.all_reduce(v, (), op="max"),
+                       lambda xs: comm.all_reduce(xs, (), op="max")),
+    "all_reduce_ring_int8": (lambda v: jdist.all_reduce(v, (), algorithm="ring", codec="int8"),
+                             lambda xs: comm.all_reduce(xs, (), algorithm="ring", codec="int8")),
+    "all_gather": (lambda v: jdist.all_gather(v, ()), lambda xs: comm.all_gather(xs, ())),
+    "all_gather_untiled": (lambda v: jdist.all_gather(v, (), tiled=False),
+                           lambda xs: comm.all_gather(xs, (), tiled=False)),
+    "reduce_scatter": (lambda v: jdist.reduce_scatter(v, ()),
+                       lambda xs: comm.reduce_scatter(xs, ())),
+    "all_to_all": (lambda v: jdist.all_to_all(v, (), split_axis=0, concat_axis=1),
+                   lambda xs: comm.all_to_all(xs, (), split_axis=0, concat_axis=1)),
+    "ppermute": (lambda v: jdist.ppermute(v, (), [(0, 0)]),
+                 lambda xs: comm.ppermute(xs, (), [(0, 0)])),
+}
+
+
+@pytest.mark.parametrize("op", sorted(EMPTY_AXIS_OPS))
+def test_facade_empty_axis_is_the_native_noop(group, op):
+    """``axis=()`` reduces nothing: every facade op JAX runs as a no-op there
+    returns each rank's value as ``lax.psum(x, ())`` (``lax.pmean(x, ())``
+    for the mean: float32 for this int32 payload) does, and JAX's facade
+    agrees; the algorithmic route quantises nothing."""
+    x = _int_payload((N, 8, 5), 52).astype(np.int32)
+    ref = jax.lax.pmean if op == "all_reduce_mean" else jax.lax.psum
+    want = _run(lambda v: ref(v[0], ())[None], x)
+    jfn, pfn = EMPTY_AXIS_OPS[op]
+    np.testing.assert_array_equal(_run(lambda v: jfn(v[0])[None], x), want)
+    xs = shards_from_numpy(x, group)
+    got = pfn(xs)
+    assert str(got[0].dtype) == f"torch.{want.dtype}"
+    np.testing.assert_array_equal(shards_to_numpy(got), want)
+    assert all(g.data_ptr() != t.data_ptr() for g, t in zip(got, xs))
+
+
+def test_facade_empty_axis_refusals(group):
+    """Where JAX's facade is no no-op over ``()``: the untiled all-to-all
+    (its split dim must be the axis size, 1) and the broadcast (it indexes
+    the payload's first dim) raise."""
+    xs = shards_from_numpy(_int_payload((N, 8, 5), 53), group)
+    with pytest.raises(ValueError, match="empty axis tuple"):
+        comm.all_to_all(xs, (), split_axis=0, concat_axis=1, tiled=False)
+    with pytest.raises(NotImplementedError, match="empty axis tuple"):
+        comm.broadcast(xs, ())
+
+
 @pytest.mark.parametrize("tiled", (True, False))
 def test_facade_native_gather_scatter_a2a_match_lax(group, tiled):
     xg = _int_payload((N, 3, 5), 42)

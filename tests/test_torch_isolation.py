@@ -41,6 +41,9 @@ for mod in pkgutil.walk_packages(deepspeed_tpu_torch.__path__, 'deepspeed_tpu_to
 import chip_smoke
 loaded = sorted(n for n in sys.modules if n.split('.')[0] in {BLOCKED!r} and sys.modules[n] is not None)
 assert not loaded, loaded
+for name in ('deepspeed_tpu_torch.collectives.fused_gemm', 'deepspeed_tpu_torch.parallel.tp',
+             'deepspeed_tpu_torch.parallel.zeropp'):
+    assert name in sys.modules, name
 print('isolated-ok')
 """
 
@@ -148,11 +151,13 @@ def test_unsupported_engine_config_raises(engine_over):
         RaggedInferenceConfig.from_dict(engine_over)
 
 
-@pytest.mark.parametrize("case", ["auto", "codec_only", "compiled", "axis_tuple"])
+@pytest.mark.parametrize("case", ["auto", "codec_only", "compiled", "axis_tuple",
+                                  "fused_axis_tuple"])
 def test_unsupported_collective_raises(case):
     """The collectives' selector, compiled schedules and multi-axis groups are
     not ported: both entry points (the ``comm`` facade and the algorithmic
-    ``collectives`` library) refuse them."""
+    ``collectives`` library, the fused GEMM collectives with it) refuse
+    them."""
     group = comm.RankGroup("dp", 4, device="cpu")
     xs = [torch.ones(8) for _ in range(4)]
     with pytest.raises(NotImplementedError):
@@ -162,6 +167,9 @@ def test_unsupported_collective_raises(case):
             comm.reduce_scatter(xs, group, codec="int8")
         elif case == "compiled":
             collectives.all_gather(xs, group, algorithm="compiled")
+        elif case == "fused_axis_tuple":
+            collectives.matmul_reduce_scatter([torch.ones(8, 2)] * 4, [torch.ones(2, 3)] * 4,
+                                              (group, group), fused=True)
         else:
             collectives.all_to_all(xs, (group, group), split_axis=0, concat_axis=0)
 

@@ -53,6 +53,17 @@ adds with the ``_rn`` intrinsics, never an FMA. They run as the collectives
 run them, every rank of a group on one card with its own stream: n = 2, 4
 and 8 ranks; rows of 1, 103 and 65,536 + 37 elements; blocks of 32 and 2048;
 int8 and e4m3 wires; the reduce-scatter (accumulate) and the all-to-all.
+The fused GEMM hops (``csrc/fused_gemm.cu``, rows 14 and 15) are held one
+launch at a time to their plain versions on the same inputs, both gather
+forms and the reduce-scatter's first and later hops, over the exact, int8
+and e4m3 wires, M (or Mb) = 1, odd Ks and N, tile edges: on integer
+payloads everything bit for bit; on normal ones the products by
+``fused_gemm_close`` (1e-5 relative, and 1e-6 x sqrt(K) of the largest |output|: the
+kernel sums K products in one FMA chain, cuBLAS in its own order), the
+received shard and every code and scale bit for bit (the reduce-scatter's
+codes against the plain block math of the kernel's own partial). The ops
+over 2 and 4 ranks equal their plain runs bit for bit with n - 1 launches of
+each row a rank.
 """
 
 import numpy as np
@@ -84,10 +95,13 @@ from deepspeed_tpu_torch.utils.checks import (
     GMM_SKEWED_SIZES,
     LSE_ALIBI_REL,
     bits_differ,
+    block_wire,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
     flash_inputs,
+    fused_gemm_close,
+    fused_gemm_qb,
     grouped_inputs,
     plain_collective_kernels,
     routed_group_sizes,
@@ -761,3 +775,203 @@ def test_collectives_start_after_the_callers_stream(cuda_device, alg, codec):
         want_g = coll.all_gather(dense, group, algorithm=alg, codec=codec, concat_axis=1)
     assert bits_differ(got, want) == 0
     assert bits_differ(gathered, want_g) == 0
+
+
+# ------------------------------------------------------------ fused GEMM hops
+FG_WIRES = ("none", "int8", "fp8")
+# (M, Ks, N): M = 1, odd Ks and N (the scalar load paths), a tile edge in
+# every dimension, and a llama3-1b-like shard
+FG_SHAPES = ((1, 8, 16), (6, 5, 24), (37, 7, 131), (130, 64, 200), (256, 512, 1024))
+
+
+def _fg_payload(rng, shape, ints, dev):
+    a = rng.integers(-4, 5, size=shape) if ints else rng.standard_normal(shape) * 2
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ints", [True, False], ids=["ints", "normal"])
+@pytest.mark.parametrize("shape", FG_SHAPES)
+@pytest.mark.parametrize("wire", FG_WIRES)
+@pytest.mark.parametrize("out_block", [False, True], ids=["accumulate", "out_block"])
+def test_ag_hop_kernel_matches_plain(cuda_device, out_block, wire, shape, ints):
+    """One row-14 launch against its plain version on the same inputs: the
+    product (bit for bit on integer payloads, else by ``fused_gemm_close``), the
+    received shard and the re-encoded own wire (bit for bit)."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    M, Ks, N = shape
+    rng = np.random.default_rng(M + Ks + N)
+    dev = cuda_device
+    held = _fg_payload(rng, (Ks, N), ints, dev)
+    x = _fg_payload(rng, (M, N) if out_block else (M, 3 * Ks), ints, dev)
+    y0 = _fg_payload(rng, (M, 3 * Ks) if out_block else (M, N), ints, dev)
+    upstream = _fg_payload(rng, (Ks, N), False, dev)
+    qb = fused_gemm_qb(wire, Ks, N, 64)
+    up = block_wire(wire, upstream, qb)
+
+    def run(fn):
+        y, recv = y0.clone(), torch.full((Ks, N), float("nan"), device=dev)
+        own = None
+        if wire != "none":
+            own = (torch.empty(Ks * N, dtype=up[0].dtype, device=dev),
+                   torch.empty(Ks * N // qb, device=dev))
+        fn(x, held, y, Ks, up, recv, own, qb=qb, out_block=out_block)
+        return y, recv, own
+
+    before = fg.ag_hop.launches
+    y, recv, own = run(fg.ag_hop)
+    assert fg.ag_hop.launches == before + 1
+    wy, wrecv, wown = run(fg.ag_hop_plain)
+    torch.cuda.synchronize()
+    if ints:
+        assert bits_differ([y], [wy]) == 0
+    else:
+        assert fused_gemm_close(y, wy, N if out_block else Ks)[1]
+    assert bits_differ([recv], [wrecv]) == 0
+    if own is not None:
+        assert bits_differ(list(own), list(wown)) == 0
+
+
+# (Mb, K, N, block) beside FG_SHAPES (block 64): the encode's groups of tiles
+# (csrc/fused_gemm.cu): qb 512 and 2048 dividing N (4 tiles, the full 16-tile
+# width), qb 96 (groups of 3 tiles and 1), and qb not dividing N: 256 (4
+# bands of 2 tile rows by 1 column) and 64 (3 bands of 1 tile row by 2 columns)
+RS_GROUP_SHAPES = ((256, 64, 1024, 512), (256, 64, 2048, 2048), (64, 32, 480, 96),
+                   (1024, 16, 3, 512), (384, 16, 200, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ints", [True, False], ids=["ints", "normal"])
+@pytest.mark.parametrize("shape", FG_SHAPES + RS_GROUP_SHAPES)
+@pytest.mark.parametrize("wire", FG_WIRES)
+@pytest.mark.parametrize("first", [True, False], ids=["first_hop", "later_hop"])
+def test_rs_hop_kernel_matches_plain(cuda_device, first, wire, shape, ints):
+    """One row-15 launch against its plain version: ``part = rprev + x[row0
+    : row0 + Mb] @ w`` (bit for bit on integer payloads, else by
+    ``fused_gemm_close``), and its codes: equal to the plain block math of the
+    kernel's own partial, and to the plain version's on integer payloads."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    Mb, K, N = shape[:3]
+    block = shape[3] if len(shape) > 3 else 64
+    rng = np.random.default_rng(3 * Mb + K + N)
+    dev = cuda_device
+    x = _fg_payload(rng, (3 * Mb + 5, K), ints, dev)
+    w = _fg_payload(rng, (K, N), ints, dev)
+    rows = Mb + 3  # off any alignment
+    qb = fused_gemm_qb(wire, Mb, N, block)
+    upstream = _fg_payload(rng, (Mb, N), ints, dev)
+    up = () if first else block_wire(wire, upstream, qb)
+
+    def run(fn):
+        part = torch.full((Mb, N), float("nan"), device=dev)
+        own = None
+        if wire != "none":
+            own = (torch.empty(Mb * N, dtype=hops.WIRE_DTYPES[wire], device=dev),
+                   torch.empty(Mb * N // qb, device=dev))
+        fn(x, w, rows, up, part, own, qb=qb)
+        return part, own
+
+    before = fg.rs_hop.launches
+    part, own = run(fg.rs_hop)
+    assert fg.rs_hop.launches == before + 1
+    wpart, wown = run(fg.rs_hop_plain)
+    torch.cuda.synchronize()
+    if ints:
+        assert bits_differ([part], [wpart]) == 0
+    else:
+        assert fused_gemm_close(part, wpart, K)[1]
+    if own is not None:
+        assert bits_differ(list(own), list(block_wire(wire, part, qb))) == 0
+        if ints:
+            assert bits_differ(list(own), list(wown)) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", FG_WIRES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_gemm_ops_match_plain(cuda_device, n, wire):
+    """The three ops over n ranks on the card through rows 14-15 against
+    the same ops through the plain versions, on integer payloads: the exact
+    wire bit for bit on every rank (and equal to the exact product); a lossy
+    wire by ``fused_gemm_close`` (from the second hop on the products take decoded,
+    non-integer shards, summed in the kernel's order); n - 1 launches of
+    each row a rank and op, and the launches of rows 12-13 that receive or
+    encode outside them."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    group = RankGroup("tp", n, device=cuda_device)
+    rng = np.random.default_rng(n)
+    M, Ks, N = 37, 24, 40
+    x = [_fg_payload(rng, (M, n * Ks), True, cuda_device)] * n
+    g = [_fg_payload(rng, (M, N), True, cuda_device)] * n
+    ws = [_fg_payload(rng, (Ks, N), True, cuda_device) for _ in range(n)]
+    a = [_fg_payload(rng, (n * 9, Ks), True, cuda_device) for _ in range(n)]
+    kw = dict(codec=None if wire == "none" else wire, block_size=32, fused=True)
+
+    def run():
+        return (fg.all_gather_matmul(x, ws, group, **kw),
+                fg.all_gather_matmul(g, ws, group, out_block=True, **kw),
+                fg.matmul_reduce_scatter(a, ws, group, **kw))
+
+    before = (fg.ag_hop.launches, fg.rs_hop.launches, hops.fused_hop.launches,
+              hops.permute_leaves.launches)
+    got = run()
+    after = (fg.ag_hop.launches, fg.rs_hop.launches, hops.fused_hop.launches,
+             hops.permute_leaves.launches)
+    lossy = wire != "none"
+    # lossy: one hop-0 encode a rank for each gather, one final decode-add a
+    # rank for the scatter (row 13); exact: the scatter's final pull (row 12)
+    assert [b - a_ for a_, b in zip(before, after)] == [
+        2 * n * (n - 1), n * (n - 1), 3 * n if lossy else 0, 0 if lossy else n]
+    with plain_collective_kernels():
+        want = run()
+    torch.cuda.synchronize()
+    for got_op, want_op in zip(got, want):
+        if lossy:
+            assert all(fused_gemm_close(a_, b_, max(n * Ks, N))[1]
+                       for a_, b_ in zip(got_op, want_op))
+        else:
+            assert bits_differ(got_op, want_op) == 0
+    exact = torch.cat(ws) if not lossy else None
+    if exact is not None:
+        for r in range(n):
+            assert torch.equal(got[0][r], x[r] @ exact)
+            assert torch.equal(got[1][r], g[r] @ exact.t())
+
+
+@pytest.mark.cuda
+def test_fused_gemm_hops_refuse_bad_inputs(cuda_device):
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    dev = cuda_device
+    held, x = torch.zeros(4, 8, device=dev), torch.zeros(3, 12, device=dev)
+    y = torch.zeros(3, 8, device=dev)
+    with pytest.raises(ValueError, match="do not fit"):  # columns past x
+        fg.ag_hop(x, held, y, 10, (held,), torch.empty_like(held), qb=1)
+    with pytest.raises(ValueError, match="contiguous 2-D fp32"):
+        fg.ag_hop(x.half(), held, y, 0, (held,), torch.empty_like(held), qb=1)
+    q = torch.zeros(32, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="whole number of blocks"):
+        fg.ag_hop(x, held, y, 0, (q, torch.ones(2, device=dev)), torch.empty_like(held), qb=12)
+    with pytest.raises(TypeError):
+        fg.rs_hop(x, torch.zeros(12, 8, device=dev), 0, (q.half(),), torch.zeros(3, 8, device=dev),
+                  qb=1)
+    with pytest.raises(ValueError, match="all CUDA or all CPU"):
+        fg.rs_hop(x, torch.zeros(12, 8), 0, (), torch.zeros(3, 8, device=dev), qb=1)
+
+
+def test_cpu_fused_gemm_hops_take_the_plain_versions():
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    group = RankGroup("tp", 4, device="cpu")
+    rng = np.random.default_rng(0)
+    ws = [_fg_payload(rng, (6, 10), True, "cpu") for _ in range(4)]
+    x = [_fg_payload(rng, (5, 24), True, "cpu")] * 4
+    before = (fg.ag_hop.launches, fg.rs_hop.launches)
+    got = fg.all_gather_matmul(x, ws, group, codec="int8", block_size=32, fused=True)
+    fg.matmul_reduce_scatter([_fg_payload(rng, (8, 6), True, "cpu") for _ in range(4)], ws, group,
+                             fused=True)
+    assert (fg.ag_hop.launches, fg.rs_hop.launches) == before
+    assert all(torch.isfinite(o).all() for o in got)
