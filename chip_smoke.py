@@ -23,11 +23,16 @@ Phases, any failure exits non-zero:
           path's shape (BigBird, block 16, S 4096, 32 heads, D 64, causal), a
           ``fixed`` layout at block 32 and D 128, a non-causal BigBird layout
           and a hand-made layout with empty block rows at block 64, each in
-          bf16 and fp32; the grouped GEMM at Mixtral-8x7B's up (K 4096, N
-          14336) and down (K 14336, N 4096) projections on group sizes from
-          top-2 routing of 4096 random tokens and on a skewed set (half the
-          rows in one group, an empty group, a single row, m = 4099), and at
-          K 1001, N 299 with rows past the sizes' sum, each in bf16 and fp32
+          bf16 and fp32; the grouped GEMM, every form of it (``check_grouped``:
+          form P, form D, the mma.sync form in bf16, the SIMT form in
+          fp32), at Mixtral-8x7B's up (K 4096, N 14336) and down (K 14336, N
+          4096) projections on group sizes from top-2 routing of 4096 and of
+          16 random tokens, on a skewed set (half the rows in one group, an
+          empty group, a single row, m = 4099) and, at m =
+          ``GMM_DECODE_MAX_ROWS``, a decode-sized skewed set (one group with
+          nearly all rows, single rows, empty groups, a row past the sum);
+          at K 328, N 392 with a group boundary inside a 128-row box and rows
+          past the sum; and at K 1001, N 299 (the mma.sync form and SIMT only)
           (tolerances stated beside each check);
 2b. ops   the public op entry point (``deepspeed_tpu_torch.ops``): the
           registry's op matrix printed, then ``ops.layer_norm`` and
@@ -81,8 +86,9 @@ Phases, any failure exits non-zero:
           included) is recorded: the forwards with T >= 2E = 16 (the
           prefill and the 16-row decodes) must launch the grouped GEMM 3
           times a layer, the others take the dense combine, and the plain
-          grouped matmul is never called; prefill logits held to the plain
-          versions, a decode chain profiled;
+          grouped matmul is never called; by form, the prefill forwards'
+          launches must be form P's and the decode forwards' form D's;
+          prefill logits held to the plain versions, a decode chain profiled;
 4. train  Llama-3.2-1B (the ``llama3-1b`` preset) at full width and depth
           through ``initialize`` / ``train_batch``, with the JAX package's
           headline training config (bench.py) less its ``hbm_guard``,
@@ -160,7 +166,10 @@ Phases, any failure exits non-zero:
           mask as one float mask; for the grouped GEMM ``torch._grouped_mm``),
           the flash kernels' ALiBi form at Bloom-560M's shape beside the form
           without it, the grouped GEMM at Mixtral's up projection for a
-          prefill (8192 routed rows) and a decode (32 routed rows), the ring
+          prefill (8192 routed rows) and a decode (32 routed rows), forms P
+          and D, the mma.sync form and ``torch._grouped_mm`` timed in turns, then
+          the crossover sweep of forms P and D at 32-512 routed rows over the
+          up and down projections, the ring
           hop kernels at the largest gradient leaf's chunk (65.7 M
           elements: the int8 wire's relay beside ``Tensor.copy_``, one fused
           int8 hop), their NVLink bounds stated, not measured; the fused GEMM
@@ -177,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -378,6 +388,14 @@ KV_CODE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 # and an edge set (sizes, rows, K, N): K and N not multiples of 8 (the
 # element-wise copy path), empty groups and 10 rows past the sizes' sum
 GMM_SHAPES = {"up": (4096, 14336), "down": (14336, 4096)}
+# form D's skewed set at the most rows it is picked for: nearly all in one
+# group, single rows, empty groups, one row past the sum
+GMM_DECODE_SKEWED = ((0, gmm_mod.GMM_DECODE_MAX_ROWS - 3, 0, 0, 1, 0, 0, 1),
+                     gmm_mod.GMM_DECODE_MAX_ROWS)
+# the TMA forms' edges: a group boundary inside a 128-row box, K % 64 != 0, N
+# % 256 != 0, an empty last group and rows past the sizes' sum
+GMM_TMA_EDGE = ((100, 300, 0, 129, 0), 600, 328, 392)
+GMM_SWEEP_TOKENS = (16, 32, 64, 128, 256)  # the crossover sweep: 32-512 routed rows, top-2
 # the collectives phase: 4 ranks of one group on the card
 COLL_KERNELS = ("permute_leaves", "fused_hop")  # rows 12 and 13 (csrc/ring_hop.cu)
 COLL_RANKS = 4
@@ -445,6 +463,7 @@ def zero_counts() -> None:
     """Every kernel's launch counter and ``_moe``'s per-regime call counters."""
     for fn, attr in counted().values():
         setattr(fn, attr, 0)
+    gmm_mod.grouped_matmul.launches_by_form.update(dict.fromkeys(gmm_mod.FORMS, 0))
     model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
 
 
@@ -872,31 +891,40 @@ def phase_checks(dev, max_err):
 
 
 def check_grouped(dev, max_err):
-    """Phase 2's grouped-GEMM checks: Mixtral-8x7B's up and down projections
-    on group sizes from top-2 routing of 4096 random tokens (a prefill) and
-    of 16 (a 16-row decode forward: 32 routed rows, tiles almost all
-    masked), and on the skewed set, and K, N not multiples of 8 with rows
-    past the sizes' sum, each in bf16 and fp32 (TF32 off), held by
-    ``GMM_TOL``."""
-    sets = {"routed 4096 tokens top-2": (routed_group_sizes(4096), None),
-            "routed 16 tokens top-2": (routed_group_sizes(16), None),
-            "skewed": (GMM_SKEWED_SIZES, None)}
-    cases = [(f"{proj} {label}", sizes, rows, K, N) for proj, (K, N) in GMM_SHAPES.items()
-             for label, (sizes, rows) in sets.items()]
-    cases.append(("edges", *GMM_EDGE))
+    """Phase 2's grouped-GEMM checks, every form through
+    ``_grouped_matmul_form``: form
+    P, the mma.sync form and the SIMT form (fp32, TF32 off) at
+    Mixtral-8x7B's up and down projections on group sizes from top-2 routing
+    of 4096 random tokens (a prefill) and of 16 (a 16-row decode forward: 32
+    routed rows) and on the skewed set; form D on the 16-token set and on
+    ``GMM_DECODE_SKEWED``; the TMA forms' edge set; the mma.sync form and SIMT at
+    K, N not multiples of 8 with rows past the sizes' sum. Each held by
+    ``GMM_TOL``, rows past the sum exactly 0."""
+    sets = {"routed 4096 tokens top-2": ((routed_group_sizes(4096), None), ("wgmma", "mma")),
+            "routed 16 tokens top-2": ((routed_group_sizes(16), None), ("wgmma", "stream", "mma")),
+            "skewed": ((GMM_SKEWED_SIZES, None), ("wgmma", "mma")),
+            "decode skewed": (GMM_DECODE_SKEWED, ("wgmma", "stream", "mma"))}
+    cases = [(f"{proj} {label}", sizes, rows, K, N, forms)
+             for proj, (K, N) in GMM_SHAPES.items()
+             for label, ((sizes, rows), forms) in sets.items()]
+    cases.append(("tma edges", *GMM_TMA_EDGE, ("wgmma", "stream", "mma")))
+    cases.append(("edges", *GMM_EDGE, ("mma",)))
     failures = []
-    for label, sizes, rows, K, N in cases:
+    for label, sizes, rows, K, N, forms in cases:
         for dtype in (torch.bfloat16, torch.float32):
             lhs, rhs, gs = grouped_inputs(dev, sizes, K, N, dtype, rows=rows)
-            ok, mabs, share = check_grouped_matmul(lhs, rhs, gs)
-            if dtype == torch.bfloat16:
-                max_err["grouped_matmul"] = max(max_err["grouped_matmul"], mabs)
-            rtol, atol = GMM_TOL[dtype]
-            log(f"[check] grouped_matmul {label} sizes {list(sizes)}: [{lhs.shape[0]}, {K}] x "
-                f"[{len(sizes)}, {K}, {N}] {str(dtype)[6:]}: max_abs {mabs:.3e}, largest error / "
-                f"bound {share:.3f}; tol rtol={rtol} atol={atol} x RMS {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failures.append(f"grouped_matmul {label} {dtype}")
+            picked = gmm_mod.pick_form(dtype, lhs.shape[0], K, N, True)
+            for form in forms if dtype == torch.bfloat16 else ("simt",):
+                ok, mabs, share = check_grouped_matmul(lhs, rhs, gs, form=form)
+                if dtype == torch.bfloat16:
+                    max_err["grouped_matmul"] = max(max_err["grouped_matmul"], mabs)
+                rtol, atol = GMM_TOL[dtype]
+                log(f"[check] grouped_matmul {label} sizes {list(sizes)}: [{lhs.shape[0]}, {K}] x "
+                    f"[{len(sizes)}, {K}, {N}] {str(dtype)[6:]} form {form} (the wrapper picks "
+                    f"{picked}): max_abs {mabs:.3e}, largest error / "
+                    f"bound {share:.3f}; tol rtol={rtol} atol={atol} x RMS {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"grouped_matmul {label} {dtype} {form}")
             del lhs, rhs, gs
             torch.cuda.empty_cache()
     return failures
@@ -1573,6 +1601,7 @@ def phase_mixtral_serve(dev, results):
                 mock.patch.object(gmm_mod, "grouped_matmul_plain", spy):
             outs, wall, spans, peak_gb = timed_generate(engine, prompts)
         launches = launch_counts()
+        by_form = dict(gmm_mod.grouped_matmul.launches_by_form)
         calls = (model_mod._moe.dense_calls, model_mod._moe.ragged_calls)
         forwards = engine.model_forwards
         ragged = [(n, c) for n, c in shapes if n * c >= 2 * E]
@@ -1582,16 +1611,20 @@ def phase_mixtral_serve(dev, results):
         expect = dict({k: 0 for k in launches}, rms_norm=(2 * L + 1) * forwards,
                       grouped_matmul=3 * L * len(ragged), **{paged: L * forwards})
         expect_calls = (L * (len(shapes) - len(ragged)), L * len(ragged))
+        # prefill forwards through form P, the decode forwards through form D
+        expect_forms = dict.fromkeys(gmm_mod.FORMS, 0)
+        expect_forms.update(wgmma=3 * L * ragged_prefill, stream=3 * L * ragged_decode)
         log(f"[{tag}] {len(prompts)} prompts {plens}; {forwards} forwards ({len(ragged)} with T >= "
             f"2E = {2 * E}: {ragged_prefill} prefill, {ragged_decode} decode), "
             f"{engine.dispatch_count} dispatches, launches {launches} (expected {expect}); _moe "
             f"calls dense/ragged {calls} (expected {expect_calls}); plain grouped matmul called "
-            f"{len(plain_calls)} times")
+            f"{len(plain_calls)} times; grouped GEMM launches by form {by_form} (expected "
+            f"{expect_forms})")
         if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
             log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
             return None
         if (launches != expect or calls != expect_calls or plain_calls or len(shapes) != forwards
-                or ragged_prefill == 0 or ragged_decode == 0):
+                or ragged_prefill == 0 or ragged_decode == 0 or by_form != expect_forms):
             log(f"[{tag}] FAILED: kernel launch or regime counts do not match the forwards run")
             return None
         prefill_tokens = sum(plens)
@@ -1600,6 +1633,7 @@ def phase_mixtral_serve(dev, results):
             "prompt_lens": plens, "forwards": forwards, "ragged_forwards": len(ragged),
             "ragged_prefill_forwards": ragged_prefill, "ragged_decode_forwards": ragged_decode,
             "forward_shapes": shapes, "launches": launches, "moe_calls_dense_ragged": list(calls),
+            "grouped_matmul_launches_by_form": by_form,
             "wall_s": wall, "prefill_s": spans["prefill"], "decode_s": spans["decode"],
             "prefill_tok_s": prefill_tokens / spans["prefill"],
             "decode_tok_s": engine.tokens_decoded / spans["decode"],
@@ -1619,10 +1653,14 @@ def phase_mixtral_serve(dev, results):
         if prof is None:
             return None
         r["profile_decode_chain"], rows = prof
-        gmm_ms = sum(ms for ms, _, name in rows if "gmm_bf16_kernel" in name)
-        r["grouped_matmul_share_of_device_time"] = gmm_ms / prof[0]["device_busy_ms"]
-        log(f"[{tag}] grouped GEMM: {gmm_ms:.2f} ms of {prof[0]['device_busy_ms']:.2f} ms device "
-            f"time ({100 * r['grouped_matmul_share_of_device_time']:.1f} %) in the decode chain")
+        gmm_ms = {kernel: sum(ms for ms, _, name in rows if f"{kernel}(" in name)
+                  for kernel in ("gmm_wgmma_kernel", "gmm_stream_kernel", "gmm_bf16_kernel")}
+        r["grouped_matmul_ms_by_kernel"] = gmm_ms
+        r["grouped_matmul_share_of_device_time"] = sum(gmm_ms.values()) / prof[0]["device_busy_ms"]
+        log(f"[{tag}] grouped GEMM: {sum(gmm_ms.values()):.2f} ms of "
+            f"{prof[0]['device_busy_ms']:.2f} ms device time "
+            f"({100 * r['grouped_matmul_share_of_device_time']:.1f} %) in the decode chain, by "
+            f"kernel {gmm_ms}")
         by_path[tag] = launches
         del engine
         gc.collect()  # the timing wrappers hold the engine in a reference cycle
@@ -2047,38 +2085,97 @@ def grouped_library_call(lhs, rhs, gs):
     return "per-group cuBLAS loop", loop
 
 
+def time_turns(fns, iters):
+    """Each function of ``fns`` timed twice by ``time_fn``, in the order
+    given and then in reverse (a b c c b a), on one card: the mean of its
+    two readings."""
+    got = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        got[name].append(time_fn(fns[name], iters=iters))
+    return {name: sum(ts) / len(ts) for name, ts in got.items()}
+
+
+def grouped_bound(sizes, m, K, N):
+    """(bound ms, bound by, bytes, operations) of one grouped product: lhs and
+    the output once, the weights of every group with rows."""
+    nbytes = 2 * (m * K + sum(1 for n in sizes if n) * K * N + m * N)
+    flops = 2 * m * K * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops
+
+
+def grouped_form_fns(lhs, rhs, gs):
+    """{form: call} for the bf16 forms, each through ``_grouped_matmul_form``."""
+    return {form: functools.partial(gmm_mod._grouped_matmul_form, lhs, rhs, gs, form)
+            for form in ("wgmma", "stream", "mma")}
+
+
 def time_grouped(dev, launches, max_err, timing):
     """The grouped GEMM at Mixtral-8x7B's up projection (K 4096, N 14336,
     bf16): a prefill (8192 routed rows: top-2 routing of 4096 tokens) and a
-    decode (32 routed rows: 16 tokens), beside its bound, its plain version
-    and the library call. Returns the kernel line's entry (prefill)."""
+    decode (32 routed rows: 16 tokens), forms P ("wgmma") and D ("stream"),
+    the mma.sync form ("mma") and the library call timed in turns, beside the
+    bound and the plain version; then the crossover sweep: every form and the
+    library call at 32-512 routed rows over the up and down projections.
+    Returns the kernel line's entry: the form the wrapper picks at each
+    shape, with its times."""
     K, N = GMM_SHAPES["up"]
     for label, tokens in (("prefill", 4096), ("decode", 16)):
         sizes = routed_group_sizes(tokens)
         lhs, rhs, gs = grouped_inputs(dev, sizes, K, N, torch.bfloat16)
         m = lhs.shape[0]
-        # bytes: lhs and the output once, the weights of every group with rows
-        nbytes = 2 * (m * K + sum(1 for n in sizes if n) * K * N + m * N)
-        flops = 2 * m * K * N
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound, bound_by, nbytes, flops = grouped_bound(sizes, m, K, N)
+        picked = gmm_mod.pick_form(torch.bfloat16, m, K, N, True)
         lib_name, lib_fn = grouped_library_call(lhs, rhs, gs)
-        t = {"ms": time_fn(lambda: gmm_mod.grouped_matmul(lhs, rhs, gs), iters=40),
+        forms = time_turns(dict(grouped_form_fns(lhs, rhs, gs), library=lib_fn), iters=40)
+        t = {"form": picked, "ms": forms[picked], "forms_ms": forms,
              "plain_ms": time_fn(lambda: gmm_mod.grouped_matmul_plain(lhs, rhs, gs), iters=20),
-             "library_ms": time_fn(lib_fn, iters=40), "library": lib_name,
-             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+             "library_ms": forms.pop("library"), "library": lib_name, "bound_ms": bound,
+             "bound_by": bound_by}
         timing[f"grouped_matmul[{label}]"] = t
         log(f"[time] grouped_matmul {label} [{m}, {K}] x [8, {K}, {N}] bf16, sizes {list(sizes)}: "
-            f"kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
-            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e12:.4f} TFLOP)")
+            + ", ".join(f"form {f} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                        f"{nbytes / ms / 1e9:.3f} TB/s)" for f, ms in forms.items())
+            + f"; the wrapper picks {picked}; plain {t['plain_ms']:.4f} ms, {lib_name} "
+            f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e12:.4f} TFLOP)")
         del lhs, rhs, gs, lib_fn
         torch.cuda.empty_cache()
-    d = timing["grouped_matmul[prefill]"]
+    sweep = {}
+    for proj, (K, N) in GMM_SHAPES.items():
+        for tokens in GMM_SWEEP_TOKENS:
+            sizes = routed_group_sizes(tokens)
+            lhs, rhs, gs = grouped_inputs(dev, sizes, K, N, torch.bfloat16)
+            m = lhs.shape[0]
+            bound, bound_by, _, _ = grouped_bound(sizes, m, K, N)
+            lib_name, lib_fn = grouped_library_call(lhs, rhs, gs)
+            t = time_turns(dict(grouped_form_fns(lhs, rhs, gs), library=lib_fn), iters=40)
+            picked = gmm_mod.pick_form(torch.bfloat16, m, K, N, True)
+            fastest = min(("wgmma", "stream"), key=t.get)
+            sweep[f"{proj} m={m}"] = dict(t, bound_ms=bound, bound_by=bound_by, picked=picked,
+                                          faster_tma_form=fastest)
+            log(f"[time] grouped_matmul crossover {proj} [{m}, {K}] x [8, {K}, {N}] sizes "
+                f"{list(sizes)}: " + ", ".join(f"{f} {ms:.4f}" for f, ms in t.items())
+                + f" ms, bound {bound:.4f} ({bound_by}); faster of P and D: {fastest}; the "
+                f"wrapper picks {picked} (GMM_DECODE_MAX_ROWS {gmm_mod.GMM_DECODE_MAX_ROWS})")
+            del lhs, rhs, gs, lib_fn
+            torch.cuda.empty_cache()
+    timing["grouped_matmul[crossover]"] = sweep
+    d, dec = timing["grouped_matmul[prefill]"], timing["grouped_matmul[decode]"]
+    for label, t in (("prefill", d), ("decode", dec)):
+        log(f"[time] grouped_matmul {label}: the picked form {t['form']} {t['ms']:.4f} ms against "
+            f"the mma.sync form {t['forms_ms']['mma']:.4f} ms "
+            f"({'faster' if t['ms'] < t['forms_ms']['mma'] else 'NOT faster'})")
     return dict(name="grouped_matmul", route="cuda", source="deepspeed_tpu_torch/csrc/grouped_gemm.cu",
                 replaces="deepspeed_tpu/inference/model.py:234", launches=launches["grouped_matmul"],
                 max_abs_err=max_err["grouped_matmul"],
                 shape="Mixtral-8x7B up projection [8192, 4096] x [8, 4096, 14336] bf16, top-2 "
                       "routed sizes",
+                form=d["form"], mma_ms=d["forms_ms"]["mma"],
+                decode={"shape": "[32, 4096] x [8, 4096, 14336] bf16", "form": dec["form"],
+                        "mma_ms": dec["forms_ms"]["mma"],
+                        **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")}},
                 **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
 
 

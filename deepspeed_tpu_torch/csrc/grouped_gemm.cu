@@ -8,36 +8,71 @@
 // fp32 and the result rounded once to lhs's dtype. Rows past the sum of the
 // sizes are written 0 (lax.ragged_dot's rule); a negative size counts as 0.
 //
-// What bounds it on an H100: at a prefill (Mixtral's up projection, 8192
-// routed rows x 4096 x 14336) the 0.96 TFLOP over 989 TFLOP/s (~0.97 ms)
-// outweighs its ~1.24 GB of bytes (~0.37 ms): operations. At a decode (32
-// routed rows) the 940 MB of expert weights are the whole cost: bytes
-// (~0.28 ms at 3.35 TB/s).
+// Four forms, one function. The wrapper (ops/grouped_matmul.py) picks one on
+// the host from (dtype, m, K, N, alignment), never from the group sizes:
 //
-// Design (simple and right first; wgmma and TMA are later work):
-// - One launch covers every group. The grid's x dimension is a bound on the
-//   m-tiles, ceil(m / BM) + E (each group boundary adds at most one partial
-//   tile), times the n-tiles in y. Each block walks the group sizes on the
-//   device to find its (group, row range); blocks past the last tile exit.
-//   The sizes are never read back to the host, so a projection costs no
-//   host sync.
-// - bf16: 128 x 128 output tiles, 8 warps of 64 x 32, k-steps of 32 staged
-//   through a 3-deep ring of shared-memory tiles with cp.async (16-byte
-//   copies; rows are padded by 8 elements so that ldmatrix reads are free of
-//   bank conflicts), fragments by ldmatrix (.trans for the [K, N] weights)
-//   and tensor cores by warp-level mma.sync m16n8k16 with fp32 accumulators.
-// - Loads are masked at group and matrix edges: rows of another group, k
-//   past K and n past N are filled with 0, so a block never reads another
-//   group's rows or a matrix past its end. Chunks that are not whole or not
-//   16-byte aligned (K or N not a multiple of 8) are copied element by
-//   element.
-// - fp32: SIMT FMA on 64 x 64 tiles (4 x 4 outputs a thread), k-steps of 16.
-//   No tensor core is used, so the products are exact fp32 products.
-// The kernel allocates nothing and launches on the caller's stream.
+// - Form P ("wgmma", bf16 prefill). What bounds it: operations. Mixtral's up
+//   projection at 8192 routed rows x 4096 x 14336 is 0.96 TFLOP (~0.97 ms at
+//   989 TFLOP/s) against ~1.24 GB (~0.37 ms). Only wgmma reaches Hopper's full
+//   tensor rate, so: 128 x 256 output tiles, k-steps of 64 (one 128-byte
+//   swizzle row); two consumer warpgroups of 64 rows each issue
+//   wgmma.m64n256k16 from shared memory with fp32 accumulators in registers;
+//   one producer thread keeps a 4-stage ring full with TMA (A through a 2-D
+//   map of lhs, box 128 x 64; B through a 3-D map (N, K, E) of rhs, boxes
+//   64 x 64, so that a k-box past K is zero-filled instead of reading the next
+//   expert's rows), guarded by full/empty mbarriers; setmaxnreg moves
+//   registers from the producer to the consumers. B is N-contiguous, so its
+//   wgmma descriptor is MN-major (the transpose bit). Blocks walk m-tiles
+//   16 at a time per n-tile column so that the blocks in flight share lhs rows
+//   and weight columns in L2. The outputs are staged through the free ring
+//   and stored as whole 16-byte chunks of rows, not as the accumulator
+//   layout's scattered 4-byte pairs. What holds it back now: L2 to
+//   shared-memory traffic (48 KB a k-step per tile, no multicast) and one
+//   tile per block (the epilogue and the ring's fill are not overlapped).
+// - Form D ("stream", bf16 decode). What bounds it: bytes. At 32 routed rows
+//   the 940 MB of expert weights are the whole cost (~0.28 ms at 3.35 TB/s),
+//   and a 128-row tile of tokens would be ~97 % zeros. So the operands swap:
+//   out_g^T [N, rows] = W_g^T [N, K] . lhs_g^T [K, rows]. The weight's columns
+//   take mma.sync's 16-row side (ldmatrix.trans of the swizzled [k][n] tile)
+//   and a chunk of at most 16 token rows its 8-column side (two m16n8k16, the
+//   second skipped for chunks of <= 8 rows). An item is (group, 16-row chunk,
+//   128 columns): the group's K x 128 weight slab streams through a 6-stage
+//   TMA ring (16 KB of weight and the chunk's 2 KB of lhs a stage); four
+//   consumer warps take 32 columns each, one producer thread issues the
+//   copies. Two blocks an SM (192 KB of weight in flight) walk the items
+//   persistently: the items are counted from the sizes on the device, so
+//   every block gets real work and no wave ends half empty, and the ring
+//   runs on from one item to the next. No shared memory is written for
+//   absent tokens. Past ~64 routed rows a group's rows span more chunks,
+//   each streaming the slab again (from L2 at best), and form P is faster.
+// - "mma" (the mma.sync form), bf16 shapes the TMA forms do not take (K or N not a
+//   multiple of 8, a pointer off 16 bytes): 128 x 128 tiles, 8 warps of
+//   64 x 32, k-steps of 32 through a 3-deep cp.async ring, ldmatrix and
+//   mma.sync m16n8k16. Loads are masked at group and matrix edges; chunks that
+//   are not whole or not 16-byte aligned are copied element by element.
+// - "simt", fp32: FMA on 64 x 64 tiles (4 x 4 outputs a thread), k-steps of
+//   16, no tensor core, so the products are exact fp32 products.
+//
+// Shared by all: one launch covers every group. Each group is cut into its
+// own m-tiles (its last one partial), so a tile never spans two groups'
+// weights; a grid of ceil(m / BM) + E m-tiles bounds them (form D: a
+// persistent grid), and each block walks the sizes on the device to find its
+// (group, row range). The sizes are never read back to the host, so a
+// projection costs no host sync. The TMA forms load a tile's full box: rows
+// past the group's end are the next group's, multiplied and never stored
+// (the epilogue masks rows and columns), rows past m are zero-filled. No TMA
+// store: a box would overwrite the next group's rows, so outputs go out with
+// masked stores. The kernels allocate nothing and launch on the caller's
+// stream.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hop_wire.cuh"  // sm_count
 
 namespace {
 
@@ -61,12 +96,17 @@ struct Tile {
 // The m-tile t of the grouped problem: the groups end to end in rows, each
 // cut into tiles of bm rows (its last one partial), then the rows past the
 // sizes' sum as one more group.
+__device__ __forceinline__ int group_end(const int* __restrict__ group_sizes, int E, int m, int g,
+                                         int start) {
+  if (g == E) return m;
+  return static_cast<int>(min(static_cast<long long>(m),
+                              start + static_cast<long long>(max(group_sizes[g], 0))));
+}
+
 __device__ Tile find_tile(const int* __restrict__ group_sizes, int E, int m, int bm, int t) {
   int start = 0, tiles = 0;
   for (int g = 0; g <= E; ++g) {
-    int end = m;
-    if (g < E) end = static_cast<int>(min(static_cast<long long>(m),
-                                          start + static_cast<long long>(max(group_sizes[g], 0))));
+    const int end = group_end(group_sizes, E, m, g, start);
     const int n = (end - start + bm - 1) / bm;
     if (t < tiles + n) {
       const int row0 = start + (t - tiles) * bm;
@@ -76,6 +116,17 @@ __device__ Tile find_tile(const int* __restrict__ group_sizes, int E, int m, int
     start = end;
   }
   return {-1, 0, 0};
+}
+
+// The number of m-tiles find_tile enumerates.
+__device__ int count_tiles(const int* __restrict__ group_sizes, int E, int m, int bm) {
+  int start = 0, tiles = 0;
+  for (int g = 0; g <= E; ++g) {
+    const int end = group_end(group_sizes, E, m, g, start);
+    tiles += (end - start + bm - 1) / bm;
+    start = end;
+  }
+  return tiles;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -93,13 +144,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -113,6 +164,130 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------- TMA, mbarrier, wgmma
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Spin until the phase of parity `parity` has completed. A phase that has not
+// completed after 10 s (a copy that never lands) traps, so that the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = global_ns();
+    } else if (global_ns() - start > 10000000000ull) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The 1024-byte aligned start of dynamic shared memory (the 128-byte swizzle's atom).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start, leading and stride
+// byte offsets in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Stage the A tile: rows [row0, row1) of lhs, columns [k0, k0 + BK).
@@ -294,32 +469,376 @@ gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
   }
 }
 
+// ---------------------------------------------------------------- form P: wgmma + TMA
+
+constexpr int kPThreads = 384;  // consumer warpgroups 0 and 1, then the producer's
+constexpr int PBM = 128, PBN = 256, PBK = 64, kPStages = 4, kPGroupM = 16;
+constexpr int kPAHalf = 64 * PBK * 2;           // 8 KB: one consumer's 64 rows of A
+constexpr int kPABytes = 2 * kPAHalf;           // 16 KB
+constexpr int kPBBox = PBK * 64 * 2;            // 8 KB: one 64-column box of B
+constexpr int kPStage = kPABytes + 4 * kPBBox;  // 48 KB
+constexpr int kPSmem = kPStages * kPStage + 2 * kPStages * 8 + 1024;
+constexpr int kPOutStride = PBN * 2 + 16;  // staged output rows of 528 B: a warp's writes hit 32 banks
+static_assert(2 * 64 * kPOutStride <= kPStages * kPStage, "the staged outputs fit the ring");
+
+__global__ void __launch_bounds__(kPThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
+                 const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int K, int N,
+                 int E, int mtiles, int ntiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPStages * kPStage);
+  uint64_t* empty = full + kPStages;
+
+  // block -> (m-tile, n-tile): kPGroupM m-tiles down each n-tile column at a time
+  const int span = kPGroupM * ntiles;
+  const int first = static_cast<int>(blockIdx.x) / span * kPGroupM;
+  const int gm = min(mtiles - first, kPGroupM);
+  const int local = static_cast<int>(blockIdx.x) % span;
+  const Tile tile = find_tile(group_sizes, E, m, PBM, first + local % gm);
+  if (tile.group < 0) return;
+  const int n0 = local / gm * PBN;
+  // the tail group (rows past the sizes' sum) loads nothing: its outputs are 0
+  const int ktiles = tile.group < E ? (K + PBK - 1) / PBK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256 && ktiles > 0) {
+      prefetch_map(&a_map);
+      prefetch_map(&b_map);
+      // boxes wholly past N are not loaded; their columns are never stored
+      const int boxes = min(4, (N - n0 + 63) / 64);
+      const unsigned bytes = kPABytes + boxes * kPBBox;
+      int s = 0, phase = 0;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], bytes);
+        unsigned char* st = smem + s * kPStage;
+        tma_load_2d(st, &a_map, &full[s], kt * PBK, tile.row0);
+        for (int c = 0; c < boxes; ++c)
+          tma_load_3d(st + kPABytes + c * kPBBox, &b_map, &full[s], n0 + c * 64, kt * PBK,
+                      tile.group);
+        if (++s == kPStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    // a warpgroup whose 64 rows all lie past the tile's end only keeps the ring turning
+    const bool active = tile.row0 + 64 * wg < tile.row1;
+    int s = 0, phase = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[s], phase);
+      if (active) {
+        const unsigned a = smem_addr(smem + s * kPStage + wg * kPAHalf);
+        const unsigned b = smem_addr(smem + s * kPStage + kPABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < PBK / 16; ++kk)
+          // A: K-major, 8-row groups 1024 B apart, k advances 32 B within the
+          // swizzled row; B: MN-major, 64-column boxes 8 KB apart (leading),
+          // 8-row k groups 1024 B apart (stride), k advances 16 rows = 2 KB
+          wgmma_m64n256k16(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                           wgmma_desc(b + kk * 2048, kPBBox, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+      }
+      if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
+      if (++s == kPStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // Accumulator pair j holds rows warp*16 + lane/4 (and + 8), columns 8 j +
+    // 2 (lane % 4). The outputs go through shared memory, so that global
+    // stores are whole 16-byte chunks of rows; once both warpgroups are past
+    // their last stage, the ring is free.
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    unsigned char* staged = smem + wg * 64 * kPOutStride;
+    const int r = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < PBN / 8; ++j) {
+      const int c = (j * 8 + (lane & 3) * 2) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(staged + r * kPOutStride + c) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(staged + (r + 8) * kPOutStride + c) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    for (int i = threadIdx.x & 127; i < 64 * PBN / 8; i += 128) {
+      const int rr = i / (PBN / 8), c = i % (PBN / 8) * 8;
+      const int row = tile.row0 + wg * 64 + rr, col = n0 + c;
+      if (row < tile.row1 && col < N)  // N % 8 == 0: a chunk is wholly in or out
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * N + col) =
+            *reinterpret_cast<const uint4*>(staged + rr * kPOutStride + c * 2);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- form D: swapped operands, weight streaming
+
+constexpr int kDThreads = 160;  // consumer warps 0-3, then the producer warp
+constexpr int DBM = 16, DBN = 128, DBK = 64, kDStages = 6, kDBlocksPerSM = 2;
+constexpr int kDBoxes = DBN / 64;             // 64-column weight boxes a stage
+constexpr int kDFrags = DBN / 64;             // 16-column A fragments a consumer warp
+constexpr int kDWBox = DBK * 64 * 2;          // 8 KB: [64 k][64 n], swizzled rows of 128 B
+constexpr int kDWBytes = kDBoxes * kDWBox;
+constexpr int kDXBytes = DBM * DBK * 2;       // 2 KB of lhs: [16 rows][64 k]
+constexpr int kDStage = kDWBytes + kDXBytes;  // a multiple of 1024
+constexpr int kDSmem = kDStages * kDStage + 2 * kDStages * 8 + 1024;
+
+// Persistent: each block walks the items (16-row chunk, DBN columns) from
+// blockIdx.x in steps of gridDim.x. The items are counted on the device from
+// the sizes (chunks of one column tile next to each other, so that a group's
+// second chunk finds the slab in L2), so every block gets its share of real
+// work; the ring runs on across items, so the producer loads the next item's
+// slab while the consumers store the last one's outputs.
+__global__ void __launch_bounds__(kDThreads, kDBlocksPerSM)
+gmm_stream_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                  const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int K, int N,
+                  int E, int ntiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDStages * kDStage);
+  uint64_t* empty = full + kDStages;
+  const int ktiles_all = (K + DBK - 1) / DBK;
+  const int mtiles = count_tiles(group_sizes, E, m, DBM), items = mtiles * ntiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int s = 0, phase = 0;
+  if (warp == 4) {
+    if (lane != 0) return;
+    prefetch_map(&x_map);
+    prefetch_map(&w_map);
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Tile tile = find_tile(group_sizes, E, m, DBM, item % mtiles);
+      if (tile.group == E) continue;  // rows past the sum: nothing to load
+      const int n0 = item / mtiles * DBN;
+      for (int kt = 0; kt < ktiles_all; ++kt) {
+        mbar_wait(&empty[s], phase ^ 1);
+        // boxes wholly past N are not loaded; their columns are never stored
+        const int boxes = min(kDBoxes, (N - n0 + 63) / 64);
+        mbar_expect_tx(&full[s], boxes * kDWBox + kDXBytes);
+        unsigned char* st = smem + s * kDStage;
+        for (int c = 0; c < boxes; ++c)
+          tma_load_3d(st + c * kDWBox, &w_map, &full[s], n0 + c * 64, kt * DBK, tile.group);
+        tma_load_2d(st + kDWBytes, &x_map, &full[s], kt * DBK, tile.row0);
+        if (++s == kDStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  // ldmatrix lanes: the 8 k rows (or token rows) of matrix lane / 8
+  const int lk = (lane & 7) + ((lane >> 4) << 3), lc = (lane >> 3) & 1;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Tile tile = find_tile(group_sizes, E, m, DBM, item % mtiles);
+    const int n0 = item / mtiles * DBN;
+    const int ktiles = tile.group < E ? ktiles_all : 0;  // rows past the sum are written 0
+    float acc[kDFrags][2][4];
+#pragma unroll
+    for (int f = 0; f < kDFrags; ++f)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][i][e] = 0.f;
+    const bool two = tile.row1 - tile.row0 > 8;  // the chunk's rows 8-15 hold some of the group's
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[s], phase);
+      const unsigned char* st = smem + s * kDStage;
+#pragma unroll
+      for (int kk = 0; kk < DBK / 16; ++kk) {
+        // B = lhs^T [16 k x 8 rows] twice: token rows 0-7 in b[0..1], 8-15 in b[2..3]
+        unsigned b[4];
+        const int kc = kk * 2 + lc;
+        ldmatrix_x4(b, st + kDWBytes + lk * 128 + ((kc ^ (lk & 7)) << 4));
+        const int k = kk * 16 + lk;
+#pragma unroll
+        for (int f = 0; f < kDFrags; ++f) {
+          // A = W^T [16 n x 16 k]: the stored [k][n] rows through ldmatrix.trans;
+          // 16-byte chunk c of row r sits at chunk c ^ (r % 8) (128-byte swizzle)
+          const int cb = (warp * kDFrags + f) * 16;  // the fragment's first column in the tile
+          const int nc = (cb & 63) / 8 + lc;
+          unsigned a[4];
+          ldmatrix_x4_trans(a, st + (cb >> 6) * kDWBox + k * 128 + ((nc ^ (k & 7)) << 4));
+          mma_bf16(acc[f][0], a, b[0], b[1]);
+          if (two) mma_bf16(acc[f][1], a, b[2], b[3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == kDStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // accumulator (f, rb, half, e): weight column (warp kDFrags + f) 16 + lane/4 + 8 half,
+    // token row 8 rb + 2 (lane % 4) + e
+#pragma unroll
+    for (int f = 0; f < kDFrags; ++f)
+#pragma unroll
+      for (int rb = 0; rb < 2; ++rb)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = n0 + (warp * kDFrags + f) * 16 + (lane >> 2) + half * 8;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = tile.row0 + rb * 8 + (lane & 3) * 2 + e;
+            if (row < tile.row1 && col < N)
+              out[static_cast<size_t>(row) * N + col] = __float2bfloat16(acc[f][rb][2 * half + e]);
+          }
+        }
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
+// library links against nothing but the CUDA runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
+// strides in bytes of the dimensions past the first. Boxes past an edge are
+// zero-filled.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raises kernel's dynamic shared-memory limit to bytes once per device (done[dev]
+// remembers it): the attribute holds for the device's later launches.
+constexpr int kMaxDevices = 64;
+bool bf16_smem_set[kMaxDevices], wgmma_smem_set[kMaxDevices], stream_smem_set[kMaxDevices];
+
+cudaError_t allow_smem(const void* kernel, int bytes, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev >= 0 && dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// form codes, shared with ops/grouped_matmul.py
+enum Form { kSimt = 0, kMma = 1, kWgmma = 2, kStream = 3 };
 
 }  // namespace
 
-// dtype codes: 0 = fp32, 1 = bf16 (lhs, rhs and out alike). Returns
-// cudaGetLastError() after the launch.
+// dtype codes: 0 = fp32, 1 = bf16 (lhs, rhs and out alike); form: 0 SIMT
+// (fp32), 1 mma.sync (bf16), 2 form P, 3 form D (bf16; K and N multiples of
+// 8, K > 0, every pointer 16-byte aligned). Returns cudaErrorInvalidValue for
+// a shape or dtype the form does not take, else cudaGetLastError() after the
+// launch.
 extern "C" int ds_grouped_matmul(const void* lhs, const void* rhs, const void* group_sizes,
-                                 void* out, int m, int K, int N, int E, int dtype, void* stream) {
+                                 void* out, int m, int K, int N, int E, int dtype, int form,
+                                 void* stream) {
   if (m <= 0 || K < 0 || N <= 0 || E <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
-  if (dtype == 1) {
+  if (form == kMma && dtype == 1) {
     const dim3 grid((m + BM - 1) / BM + E, (N + BN - 1) / BN);
     if (grid.y > 65535) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        gmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(gmm_bf16_kernel), kSmemBf16, bf16_smem_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     gmm_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(
         static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs), gs, static_cast<bf16*>(out),
         m, K, N, E, K % 8 == 0 && aligned16(lhs), N % 8 == 0 && aligned16(rhs));
-  } else if (dtype == 0) {
+  } else if (form == kSimt && dtype == 0) {
     const dim3 grid((m + FBM - 1) / FBM + E, (N + FBN - 1) / FBN);
     if (grid.y > 65535) return cudaErrorInvalidValue;
     gmm_f32_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(lhs),
                                              static_cast<const float*>(rhs), gs,
                                              static_cast<float*>(out), m, K, N, E);
+  } else if ((form == kWgmma || form == kStream) && dtype == 1) {
+    if (K == 0 || K % 8 || N % 8 || !aligned16(lhs) || !aligned16(rhs) || !aligned16(out))
+      return cudaErrorInvalidValue;
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return cudaErrorNotSupported;
+    const bool p = form == kWgmma;
+    // lhs [m, K] as (K, m), one box = one tile's rows x 64 k; rhs [E, K, N] as
+    // (N, K, E), one box = 64 k x 64 columns of one expert
+    const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(m)};
+    const cuuint64_t a_strides[1] = {static_cast<cuuint64_t>(K) * 2};
+    const cuuint32_t a_box[2] = {64, static_cast<cuuint32_t>(p ? PBM : DBM)};
+    const cuuint64_t b_dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+                                  static_cast<cuuint64_t>(E)};
+    const cuuint64_t b_strides[2] = {static_cast<cuuint64_t>(N) * 2,
+                                     static_cast<cuuint64_t>(K) * N * 2};
+    const cuuint32_t b_box[3] = {64, 64, 1};
+    CUtensorMap a_map, b_map;
+    if (!encode(fn, &a_map, lhs, 2, a_dims, a_strides, a_box) ||
+        !encode(fn, &b_map, rhs, 3, b_dims, b_strides, b_box))
+      return cudaErrorInvalidValue;
+    if (p) {
+      const int mtiles = (m + PBM - 1) / PBM + E, ntiles = (N + PBN - 1) / PBN;
+      const cudaError_t err =
+          allow_smem(reinterpret_cast<const void*>(gmm_wgmma_kernel), kPSmem, wgmma_smem_set);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gmm_wgmma_kernel<<<mtiles * ntiles, kPThreads, kPSmem, s>>>(
+          a_map, b_map, gs, static_cast<bf16*>(out), m, K, N, E, mtiles, ntiles);
+    } else {
+      // a bound on the items: the kernel counts them from the sizes
+      const int ntiles = (N + DBN - 1) / DBN;
+      const long long items = static_cast<long long>((m + DBM - 1) / DBM + E) * ntiles;
+      const cudaError_t err =
+          allow_smem(reinterpret_cast<const void*>(gmm_stream_kernel), kDSmem, stream_smem_set);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+      const long long slots = static_cast<long long>(hop_wire::sm_count()) * kDBlocksPerSM;
+      const int grid = static_cast<int>(std::min(items, slots));
+      gmm_stream_kernel<<<grid, kDThreads, kDSmem, s>>>(a_map, b_map, gs, static_cast<bf16*>(out),
+                                                        m, K, N, E, ntiles);
+    }
   } else {
     return cudaErrorInvalidValue;
   }

@@ -98,8 +98,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_sparse_bwd_dq": [_P] * 9 + [_I] * 9 + [_P],
     },
     "grouped_gemm": {
-        # lhs, rhs, group_sizes, out, m, K, N, E, dtype, stream
-        "ds_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # lhs, rhs, group_sizes, out, m, K, N, E, dtype, form (ops/grouped_matmul.py FORMS), stream
+        "ds_grouped_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "sparse_attention_bwd_dkv": {
         # q, k, v, dout, lse, delta, rows, nrows, dk, dv, B, H, kvH, S, hd, block, Ar,

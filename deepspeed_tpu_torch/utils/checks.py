@@ -13,7 +13,11 @@ import torch
 
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops import flash_attention as fa
-from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
+from deepspeed_tpu_torch.ops.grouped_matmul import (
+    _grouped_matmul_form,
+    grouped_matmul,
+    grouped_matmul_plain,
+)
 
 # Bound on the ALiBi form's lse error as a share of max(|lse|, 10): past a
 # keep-mask's end the bias moves a row's lse to ~10^2-10^3, where one fp32 ulp
@@ -59,11 +63,15 @@ def grouped_inputs(dev, sizes, K: int, N: int, dtype: torch.dtype, rows=None, se
     return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
-def check_grouped_matmul(lhs, rhs, group_sizes):
-    """The grouped_matmul kernel against its plain version on the same
-    inputs, by ``GMM_TOL``; rows past the sizes' sum must be exactly 0.
-    Returns (ok, max abs error, largest error as a share of its bound)."""
-    got = grouped_matmul(lhs, rhs, group_sizes)
+def check_grouped_matmul(lhs, rhs, group_sizes, form=None):
+    """The grouped_matmul kernel (the form the wrapper picks, or ``form``)
+    against its plain version on the same inputs, by ``GMM_TOL``; rows past
+    the sizes' sum must be exactly 0. Returns (ok, max abs error, largest
+    error as a share of its bound)."""
+    if form is None:
+        got = grouped_matmul(lhs, rhs, group_sizes)
+    else:
+        got = _grouped_matmul_form(lhs, rhs, group_sizes, form)
     if lhs.is_cuda:
         torch.cuda.synchronize(lhs.device)
     want = grouped_matmul_plain(lhs, rhs, group_sizes)

@@ -42,10 +42,15 @@ many, and a layout with empty block rows (output, dq and the lse sentinel
 exact there). The grouped GEMM (``csrc/grouped_gemm.cu``) is held by
 ``utils.checks.check_grouped_matmul`` (``GMM_TOL``: bf16 rtol 1e-2, one
 output ulp, and 1e-3 of the output's RMS; fp32 1e-5 and 1e-4 of the RMS, as
-the kernel sums K products in one sequential chain) on group sizes from real
-top-2 routing, a skewed set (half the rows in one group, an
-empty group, a single row, m not a multiple of 8) and K and N that are not
-multiples of 8 with rows past the sizes' sum (which must be 0). The ring
+the kernel sums K products in one sequential chain), the wrapper's pick and
+each form by name (P "wgmma", D "stream", the mma.sync "mma", "simt") wherever it
+takes the shape, on group sizes from real top-2 routing, a skewed set (half
+the rows in one group, an empty group, a single row, m not a multiple of 8),
+K and N that are not multiples of 8 with rows past the sizes' sum (which
+must be 0), form P's edges (a group boundary inside a 128-row box, K % 64
+and N % 256 not 0, an empty last group) and form D's (groups of 0 to 33 rows
+about its 8- and 16-row chunks, K 14336); each form refuses what it does not
+take. The ring
 hop kernels (``csrc/ring_hop.cu``) must equal their plain versions bit for
 bit: ``ds_permute_leaves`` copies bytes, and ``ds_fused_hop`` divides in IEEE
 fp32, rounds half to even (int8) or to nearest (e4m3), and multiplies and
@@ -90,7 +95,13 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 )
 from deepspeed_tpu_torch.ops import block_sparse as bs
 from deepspeed_tpu_torch.ops.sparse_attention import get_sparsity_config
-from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
+from deepspeed_tpu_torch.ops.grouped_matmul import (
+    _grouped_matmul_form,
+    form_takes,
+    grouped_matmul,
+    grouped_matmul_plain,
+    pick_form,
+)
 from deepspeed_tpu_torch.utils.checks import (
     GMM_SKEWED_SIZES,
     LSE_ALIBI_REL,
@@ -613,19 +624,36 @@ GMM_CASES = {
     "routed_512_tokens": (routed_group_sizes(512), None, 512, 1024),
     "skewed_m4099": (GMM_SKEWED_SIZES, None, 256, 384),
     "unaligned_tail_rows": ((0, 37, 1, 200, 0, 5, 64, 3), 320, 1001, 299),
+    # form P's edges: a group boundary inside a 128-row box, K % 64 != 0, N %
+    # 256 != 0 (and % 64), rows past the sizes' sum, an empty last group
+    "tma_edges": ((100, 300, 0, 129, 0), 600, 328, 392),
+    # form D's edges: groups of 0-33 rows about its 8- and 16-row chunks, at
+    # N 4096 and at a narrow N past K 14336 (224 k-steps, N % 64 != 0)
+    "decode_rows_n4096": ((0, 1, 7, 8, 9, 15, 16, 17, 33), None, 256, 4096),
+    "decode_rows_k14336": ((0, 1, 7, 8, 9, 15, 16, 17, 33), 120, 14336, 200),
 }
+# (form, dtype) runs: the wrapper's own pick in bf16 and fp32, then each form
+# by name (``_grouped_matmul_form``) wherever it takes the case's shape
+GMM_RUNS = {"pick-bf16": (None, torch.bfloat16), "pick-fp32": (None, torch.float32),
+            "wgmma": ("wgmma", torch.bfloat16), "stream": ("stream", torch.bfloat16),
+            "mma": ("mma", torch.bfloat16), "simt": ("simt", torch.float32)}
+GMM_PARAMS = [(case, run) for case, (_, _, K, N) in sorted(GMM_CASES.items())
+              for run, (form, dtype) in GMM_RUNS.items()
+              if form is None or form_takes(form, dtype, K, N, aligned=True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("case", sorted(GMM_CASES))
-def test_grouped_matmul_kernel_matches_plain(cuda_device, case, dtype):
+@pytest.mark.parametrize("case,run", GMM_PARAMS)
+def test_grouped_matmul_kernel_matches_plain(cuda_device, case, run):
+    form, dtype = GMM_RUNS[run]
     sizes, rows, K, N = GMM_CASES[case]
     lhs, rhs, gs = grouped_inputs(cuda_device, sizes, K, N, dtype, rows=rows)
-    before = grouped_matmul.launches
-    ok, max_abs, share = check_grouped_matmul(lhs, rhs, gs)
+    ran = form or pick_form(dtype, lhs.shape[0], K, N, aligned=True)
+    before, by_form = grouped_matmul.launches, dict(grouped_matmul.launches_by_form)
+    ok, max_abs, share = check_grouped_matmul(lhs, rhs, gs, form=form)
     assert ok, (max_abs, share)
-    assert grouped_matmul.launches == before + 1
+    by_form[ran] += 1
+    assert grouped_matmul.launches == before + 1 and grouped_matmul.launches_by_form == by_form
 
 
 @pytest.mark.cuda
@@ -637,6 +665,34 @@ def test_grouped_matmul_rejects_bad_inputs(cuda_device):
         grouped_matmul(lhs, rhs, gs.long())
     with pytest.raises(ValueError):  # K mismatch
         grouped_matmul(lhs[:, :32].contiguous(), rhs, gs)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_forms_refuse_shapes(cuda_device):
+    """Each form raises on a shape it does not take and launches nothing;
+    the wrapper sends those bf16 shapes to the mma.sync form."""
+    lhs, rhs, gs = grouped_inputs(cuda_device, (3, 5), 64, 64, torch.bfloat16)
+    odd_k = grouped_inputs(cuda_device, (3, 5), 60, 64, torch.bfloat16)
+    odd_n = grouped_inputs(cuda_device, (3, 5), 64, 60, torch.bfloat16)
+    fp32 = grouped_inputs(cuda_device, (3, 5), 64, 64, torch.float32)
+    shifted = torch.empty(8 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(8, 64)
+    shifted.copy_(lhs)  # contiguous, 2 bytes off a 16-byte boundary
+    before = dict(grouped_matmul.launches_by_form)
+    for form in ("wgmma", "stream"):
+        for args in (odd_k, odd_n, fp32, (shifted, rhs, gs)):
+            with pytest.raises(ValueError):
+                _grouped_matmul_form(*args, form)
+    with pytest.raises(ValueError):
+        _grouped_matmul_form(*fp32, "mma")
+    with pytest.raises(ValueError):
+        _grouped_matmul_form(lhs, rhs, gs, "simt")
+    with pytest.raises(ValueError):
+        _grouped_matmul_form(lhs, rhs, gs, "wmma")
+    assert grouped_matmul.launches_by_form == before
+    for args in (odd_k, odd_n, (shifted, rhs, gs)):
+        torch.testing.assert_close(grouped_matmul(*args), grouped_matmul_plain(*args),
+                                   rtol=1e-2, atol=1e-2)
+    assert grouped_matmul.launches_by_form == dict(before, mma=before["mma"] + 3)
 
 
 def test_cpu_grouped_matmul_takes_the_plain_version():

@@ -16,6 +16,10 @@ numpy tree goes to both packages (``params_from_numpy``).
   equals ``jax.lax.ragged_dot`` and ``_gmm_padded(..., interpret=True)``
   (megablox ``gmm`` in interpret mode) within 1e-5 in fp32, at K, N of 128
   and 256, with an empty group, a partial last tile and m not a multiple of 8.
+- The kernel's form follows (dtype, m, K, N, alignment) alone (form D up to
+  ``GMM_DECODE_MAX_ROWS`` routed rows, form P past it, the mma.sync form for bf16
+  shapes TMA cannot describe, SIMT for fp32); each launch counts in its form
+  and in the sum (the launcher stubbed); a CPU tensor launches no form.
 - ``InferenceEngineV2.generate`` gives the JAX engine's greedy tokens in
   fp32 and bf16, over a float pool and an int8 pool, with 5 prompts (ragged
   prefill, decode of 8 rows: T = 8 < 2E, dense) and with 12 (decode of 16
@@ -46,6 +50,7 @@ from deepspeed_tpu_torch.models import (
     params_to_numpy,
 )
 from deepspeed_tpu_torch.models.transformer import layer_slice, param_shapes
+from deepspeed_tpu_torch.ops import grouped_matmul as gmm_mod
 from deepspeed_tpu_torch.ops.grouped_matmul import grouped_matmul, grouped_matmul_plain
 
 MOE = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
@@ -129,6 +134,97 @@ def test_grouped_matmul_plain_edges():
     assert bool((out[7:] == 0).all())
     assert grouped_matmul_plain(lhs.bfloat16(), rhs.bfloat16(), gs).dtype == torch.bfloat16
     assert grouped_matmul.launches == before
+
+
+# (dtype, m, K, N, 16-byte aligned) -> the form the wrapper picks: the TMA
+# forms for bf16 with K, N multiples of 8 and aligned pointers (form D up to
+# GMM_DECODE_MAX_ROWS routed rows, form P past it), the mma.sync form for other
+# bf16 shapes, SIMT for fp32
+FORM_CHOICES = [
+    ((torch.bfloat16, 1, 4096, 14336, True), "stream"),
+    ((torch.bfloat16, gmm_mod.GMM_DECODE_MAX_ROWS, 4096, 14336, True), "stream"),
+    ((torch.bfloat16, gmm_mod.GMM_DECODE_MAX_ROWS + 1, 4096, 14336, True), "wgmma"),
+    ((torch.bfloat16, gmm_mod.GMM_DECODE_MAX_ROWS, 14336, 4096, True), "stream"),
+    ((torch.bfloat16, 8192, 14336, 4096, True), "wgmma"),
+    ((torch.bfloat16, 32, 4100, 14336, True), "mma"),
+    ((torch.bfloat16, 8192, 4096, 14340, True), "mma"),
+    ((torch.bfloat16, 32, 1001, 299, True), "mma"),
+    ((torch.bfloat16, 32, 0, 64, True), "mma"),
+    ((torch.bfloat16, 32, 4096, 14336, False), "mma"),
+    ((torch.bfloat16, 8192, 4096, 14336, False), "mma"),
+    ((torch.float32, 32, 4096, 14336, True), "simt"),
+    ((torch.float32, 8192, 4096, 14336, True), "simt"),
+]
+
+
+@pytest.mark.parametrize("shape,form", FORM_CHOICES)
+def test_grouped_matmul_form_choice(shape, form):
+    """The form follows (dtype, m, K, N, alignment) alone, and takes the shape."""
+    assert gmm_mod.pick_form(*shape) == form
+    dtype, _, K, N, aligned = shape
+    assert gmm_mod.form_takes(form, dtype, K, N, aligned)
+
+
+def test_grouped_matmul_form_rules():
+    """The TMA forms refuse what TMA cannot describe; the mma.sync form takes any
+    bf16 shape, SIMT only fp32; an unknown form raises."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for form in ("wgmma", "stream"):
+        assert gmm_mod.form_takes(form, bf16, 4096, 14336, True)
+        assert not gmm_mod.form_takes(form, bf16, 4100, 14336, True)
+        assert not gmm_mod.form_takes(form, bf16, 4096, 14340, True)
+        assert not gmm_mod.form_takes(form, bf16, 0, 64, True)
+        assert not gmm_mod.form_takes(form, bf16, 4096, 14336, False)
+        assert not gmm_mod.form_takes(form, fp32, 4096, 14336, True)
+    assert gmm_mod.form_takes("mma", bf16, 1001, 299, False)
+    assert not gmm_mod.form_takes("mma", fp32, 64, 64, True)
+    assert gmm_mod.form_takes("simt", fp32, 1001, 299, False)
+    assert not gmm_mod.form_takes("simt", bf16, 64, 64, True)
+    with pytest.raises(ValueError):
+        gmm_mod.form_takes("wmma", bf16, 64, 64, True)
+
+
+def test_grouped_matmul_launches_by_form_sum_to_launches(monkeypatch):
+    """Each launch counts once in its form and once in the sum, and passes
+    its form's code to the C entry. The launcher is stubbed: there is no
+    card here."""
+    calls = []
+    monkeypatch.setattr(gmm_mod.op_builder, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(grouped_matmul, "launches", 7)
+    monkeypatch.setattr(grouped_matmul, "launches_by_form",
+                        {"simt": 7, "mma": 0, "wgmma": 0, "stream": 0})
+    lhs, rhs = torch.zeros(4, 16, dtype=torch.bfloat16), torch.zeros(2, 16, 8, dtype=torch.bfloat16)
+    gs = torch.tensor([1, 3], dtype=torch.int32)
+    order = ["stream", "wgmma", "stream", "mma", "simt"]
+    for form in order:
+        out = gmm_mod._launch(lhs, rhs, gs, form)
+        assert out.shape == (4, 8) and out.dtype == torch.bfloat16
+    assert [a[-2] for a in calls] == [gmm_mod.FORMS[f] for f in order]
+    assert grouped_matmul.launches_by_form == {"simt": 8, "mma": 1, "wgmma": 1, "stream": 2}
+    assert grouped_matmul.launches == sum(grouped_matmul.launches_by_form.values()) == 12
+
+
+def test_grouped_matmul_cpu_tensors_take_the_plain_version(monkeypatch):
+    """A CPU tensor takes ``grouped_matmul_plain`` with no launch of any form;
+    a form by name refuses a CPU tensor (a form is a kernel)."""
+    plain_calls = []
+    real_plain = gmm_mod.grouped_matmul_plain
+    monkeypatch.setattr(gmm_mod, "grouped_matmul_plain",
+                        lambda *a: plain_calls.append(1) or real_plain(*a))
+    rng = np.random.default_rng(3)
+    lhs = torch.from_numpy(rng.standard_normal((40, 64)).astype(np.float32)).bfloat16()
+    rhs = torch.from_numpy(rng.standard_normal((8, 64, 128)).astype(np.float32)).bfloat16()
+    gs = torch.tensor([5, 0, 7, 9, 1, 0, 10, 4], dtype=torch.int32)
+    before, by_form = grouped_matmul.launches, dict(grouped_matmul.launches_by_form)
+    out = grouped_matmul(lhs, rhs, gs)
+    assert plain_calls == [1]
+    torch.testing.assert_close(out, real_plain(lhs, rhs, gs))
+    assert grouped_matmul.launches == before and grouped_matmul.launches_by_form == by_form
+    for form in gmm_mod.FORMS:
+        with pytest.raises(ValueError):
+            gmm_mod._grouped_matmul_form(lhs, rhs, gs, form)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
