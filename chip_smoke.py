@@ -16,9 +16,12 @@ Phases, any failure exits non-zero:
           with an all-zero block, which must equal their plain versions bit for
           bit; the three flash-attention kernels (forward, dq, dkv) at the
           training path's shapes (llama3-1b, GPT-2-125M, Llama-3-8B heads, a
-          ragged S = 1000 with a keep-mask), each in bf16 and fp32, and their
+          ragged S = 1000 with a keep-mask, S = 129), each in bf16 (the
+          forward through its form W: wgmma fed by TMA) and fp32, and their
           ALiBi form at Bloom-560M's shape (G = 1), the llama3-1b heads (G =
-          4), hd 128 and the ragged keep-mask set; the three
+          4), hd 128 and the ragged keep-mask set; the forward alone by form
+          (``check_flash_forms``: form W and the mma.sync form, bf16, at
+          ``FLASH_FORM_SETS``); the three
           block-sparse kernels (forward, dq, dkv) at the sparse training
           path's shape (BigBird, block 16, S 4096, 32 heads, D 64, causal), a
           ``fixed`` layout at block 32 and D 128, a non-causal BigBird layout
@@ -98,7 +101,10 @@ Phases, any failure exits non-zero:
           timed steps on one numpy-seeded batch, the counters zeroed just
           before and read just after: the loss must be finite and fall, and
           the launches must equal 16 per micro-step for each flash kernel and
-          33 for RMSNorm. One more step is profiled;
+          33 for RMSNorm; every forward launch must be form W's
+          (``flash_fwd.launches_by_form``) and the plain forward is spied on
+          and never called on a CUDA tensor (in every training phase). One
+          more step is profiled;
    bloom  Bloom-560M (``BLOOM_560M``, the public config's widths, random
           weights from seed 0 with every bias and LayerNorm parameter
           redrawn) through the same entry points and config: 24 ALiBi
@@ -165,7 +171,11 @@ Phases, any failure exits non-zero:
           a token mask; for the ALiBi forms SDPA with the bias and the causal
           mask as one float mask; for the grouped GEMM ``torch._grouped_mm``),
           the flash kernels' ALiBi form at Bloom-560M's shape beside the form
-          without it, the grouped GEMM at Mixtral's up projection for a
+          without it; the flash forward's forms (form W, the mma.sync form)
+          and SDPA in turns (``FWD_TURN_ROUNDS`` palindromes, each form W /
+          SDPA ratio logged) at the llama3-1b, Bloom-560M (ALiBi) and
+          Llama-3-8B heads' (hd 128) shapes, with TFLOP/s and the share of
+          the bound; the grouped GEMM at Mixtral's up projection for a
           prefill (8192 routed rows) and a decode (32 routed rows), forms P
           and D, the mma.sync form and ``torch._grouped_mm`` timed in turns, then
           the crossover sweep of forms P and D at 32-512 routed rows over the
@@ -244,6 +254,7 @@ from deepspeed_tpu_torch.utils.checks import (
     LSE_ALIBI_REL,
     bits_differ,
     block_wire,
+    check_flash_fwd,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
@@ -344,6 +355,8 @@ FLASH_SETS = {
     "llama3-8b heads": dict(B=1, S=2048, H=32, kvH=8, hd=128),
     # right padding: row 1 keeps 613 keys, row 2 none (every query row masked)
     "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
+    # one row past a 128-row tile, 63 rows short of a 192-row one: form W's partial first tile
+    "S=129": dict(B=2, S=129, H=32, kvH=8, hd=64),
 }
 # the ALiBi form of the same kernels (Bloom's slopes): Bloom-560M's
 # training shape (G = 1), the llama3-1b heads (G = 4: the slope is the query
@@ -464,6 +477,7 @@ def zero_counts() -> None:
     for fn, attr in counted().values():
         setattr(fn, attr, 0)
     gmm_mod.grouped_matmul.launches_by_form.update(dict.fromkeys(gmm_mod.FORMS, 0))
+    fa.flash_fwd.launches_by_form.update(dict.fromkeys(fa.FWD_FORMS, 0))
     model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
 
 
@@ -648,6 +662,45 @@ def check_flash(dev, shape, dtype, alibi=False):
     ok = (all(rel <= FLASH_TOL[dtype] for rel, _ in readings.values()) and dead_exact
           and lse_err <= (LSE_ALIBI_REL if alibi else LSE_TOL))
     return ok, readings, lse_err
+
+
+# the forward's bf16 forms, checked and timed by name: form W, which the
+# wrapper runs, and the mma.sync form it replaced
+FLASH_FWD_FORMS = ("wgmma", "mma")
+# form W's forward and the mma.sync form checked by name at these sets (bf16;
+# FLASH_SETS / FLASH_ALIBI_SETS names, ALiBi or not)
+FLASH_FORM_SETS = (("llama3-1b", False), ("S=129", False), ("llama3-8b heads", False),
+                   ("bloom-560m", True), ("ragged S=1000 keep-mask", True))
+
+
+def check_flash_forms(dev, max_err):
+    """Phase 2's forward checks by form: at each ``FLASH_FORM_SETS`` set, bf16,
+    form W and the mma.sync form against the plain version, by FLASH_TOL, LSE_TOL (ALiBi: LSE_ALIBI_REL), rows with no
+    visible key exactly 0 with the lse sentinel."""
+    failures = []
+    for label, alibi in FLASH_FORM_SETS:
+        shape = (FLASH_ALIBI_SETS if alibi else FLASH_SETS)[label]
+        q, k, v, _, keep = flash_inputs(dev, **shape)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        slopes = fa.alibi_log2(alibi_slopes(shape["H"], dev)) if alibi else None
+        texts, bad = [], []
+        for name in FLASH_FWD_FORMS:
+            rel, mabs, lse_err, dead_exact, _ = check_flash_fwd(q, k, v, keep, slopes, name)
+            key = "flash_fwd_alibi" if alibi else "flash_fwd"
+            max_err[key] = max(max_err[key], mabs)
+            ok = (rel <= FLASH_TOL[torch.bfloat16] and dead_exact
+                  and lse_err <= (LSE_ALIBI_REL if alibi else LSE_TOL))
+            texts.append(f"{name} {rel:.3e}/{lse_err:.1e}")
+            if not ok:
+                bad.append(name)
+        log(f"[check] flash_fwd by form{' alibi' if alibi else ''} {label} bf16 (out row rel L2 / "
+            f"lse error; tol {FLASH_TOL[torch.bfloat16]} / "
+            f"{LSE_ALIBI_REL if alibi else LSE_TOL}, empty rows exact): " + ", ".join(texts)
+            + (f" FAIL {bad}" if bad else " ok"))
+        failures += [f"flash_fwd form {name} {label}" for name in bad]
+        del q, k, v, keep
+        torch.cuda.empty_cache()
+    return failures
 
 
 def sparse_set_inputs(dev, shape, dtype):
@@ -872,6 +925,7 @@ def phase_checks(dev, max_err):
             if not ok:
                 failures.append(f"{form} {label} {dtype}")
             torch.cuda.empty_cache()
+    failures += check_flash_forms(dev, max_err)
     for label, shape in SPARSE_SETS.items():
         for dtype in (torch.bfloat16, torch.float32):
             ok, readings, lse_err = check_sparse(dev, shape, dtype)
@@ -1696,15 +1750,29 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
                                        dtype=np.int32)}
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
+    # the flash forward's plain version, spied on: never called on a CUDA tensor
+    plain_fwd_on_cuda = []
+    real_plain_fwd = fa.flash_fwd_reference
+
+    def plain_fwd_spy(qs, *a, **kw):
+        if qs.is_cuda:
+            plain_fwd_on_cuda.append(1)
+        return real_plain_fwd(qs, *a, **kw)
+
     zero_counts()
-    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        metrics = engine.train_batch(batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        losses.append(metrics["loss"])
+    with mock.patch.object(fa, "flash_fwd_reference", plain_fwd_spy):
+        for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(metrics["loss"])
     launches = launch_counts()
+    by_form = dict(fa.flash_fwd.launches_by_form)
+    # every bf16 forward launch is form W's
+    forms_ok = by_form == dict(dict.fromkeys(fa.FWD_FORMS, 0),
+                               wgmma=launches["flash_fwd"] + launches["flash_fwd_alibi"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     grad_norm = float(metrics["grad_norm"])
@@ -1719,15 +1787,20 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
         f"step times {[round(x, 4) for x in step_s]} s")
     log(f"[{tag}] step {timed:.4f} s (median of {TRAIN_TIMED}), {tok_s:.1f} tokens/s, MFU "
         f"{100 * mfu:.2f} % ({fpt / 1e9:.3f} GFLOP/token, 989 TFLOP/s bf16), peak memory "
-        f"{peak_gb:.2f} GB; launches {launches} (expected {expect})")
+        f"{peak_gb:.2f} GB; launches {launches} (expected {expect}); flash_fwd launches by form "
+        f"{by_form}, its plain version called on a CUDA tensor {len(plain_fwd_on_cuda)} times")
     results[tag] = {"losses": losses, "step_s": step_s, "median_step_s": timed, "tokens_per_s": tok_s,
                     "mfu": mfu, "flops_per_token": fpt, "peak_mem_gb": peak_gb,
-                    "launches": launches, "grad_norm": grad_norm}
+                    "launches": launches, "grad_norm": grad_norm, "flash_fwd_by_form": by_form}
     if not all(math.isfinite(x) for x in losses + [grad_norm]) or not losses[-1] < losses[0]:
         log(f"[{tag}] FAILED: the loss is not finite or did not fall")
         return None
     if launches != expect or min(v for k, v in launches.items() if expect[k]) == 0:
         log(f"[{tag}] FAILED: kernel launch counts do not match the micro-steps run")
+        return None
+    if not forms_ok or plain_fwd_on_cuda:
+        log(f"[{tag}] FAILED: a flash forward launch was not form W's, or the plain forward ran "
+            f"on a CUDA tensor")
         return None
     if profile:
         prof = device_profile(lambda: engine.train_batch(batch))
@@ -1844,12 +1917,38 @@ def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel, alibi=False):
     return nbytes + extra_bytes, flops + extra_flops
 
 
+# palindromes (w m s s m w) of the forward's forms and SDPA in time_fwd_forms
+FWD_TURN_ROUNDS = 4
+
+
+def time_fwd_forms(qs, k, v, sl, sdpa, bound_ms, flops, tag):
+    """The forward's bf16 forms (``FLASH_FWD_FORMS``) and the SDPA yardstick
+    timed in turns (``time_turns``, ``FWD_TURN_ROUNDS`` rounds) on the same
+    inputs, logged with TFLOP/s, the share of the bound and the spread of
+    form W's time over SDPA's across the turns: ({label: mean ms}, {label:
+    [ms of each reading]})."""
+    fns = {name: functools.partial(fa._flash_fwd_form, qs, k, v, None, sl, name)
+           for name in FLASH_FWD_FORMS}
+    readings = {}
+    got = time_turns(dict(fns, sdpa=sdpa), iters=100, rounds=FWD_TURN_ROUNDS, readings=readings)
+    ratios = [w / s for w, s in zip(readings["wgmma"], readings["sdpa"])]
+    log(f"[time] flash_fwd forms {tag}, in turns: " + ", ".join(
+        f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of "
+        f"the bound)" for name, ms in got.items()))
+    log(f"[time] flash_fwd {tag}: readings {readings}; form W / SDPA reading by reading "
+        f"{[round(x, 4) for x in ratios]} (min {min(ratios):.4f}, max {max(ratios):.4f})")
+    return got, readings
+
+
 def time_flash(dev, launches, max_err, timing, alibi=False):
     """The three flash kernels, bf16, no keep-mask, beside their bounds, plain
     versions and SDPA (forward alone, and its whole backward beside dq + dkv):
     at the llama3-1b training shape, or with ``alibi`` their ALiBi form at
     Bloom-560M's (SDPA with the bias and the causal mask folded into one float
-    mask built beforehand; the SDPA backend that ran is logged)."""
+    mask built beforehand; the SDPA backend that ran is logged). The forward's
+    forms (form W, the mma.sync form) are timed in turns with SDPA
+    (``time_fwd_forms``); without ``alibi`` also at the Llama-3-8B heads' hd
+    128."""
     shape = FLASH_ALIBI_SETS["bloom-560m"] if alibi else FLASH_SETS["llama3-1b"]
     B, S, H, kvH, hd = (shape[k] for k in ("B", "S", "H", "kvH", "hd"))
     q, k, v, do, _ = flash_inputs(dev, **shape)
@@ -1880,7 +1979,12 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
     else:
         sdpa_kw = {"is_causal": True, "enable_gqa": True}
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
-    sdpa_fwd = time_fn(sdpa, iters=100)
+    fwd_bytes, fwd_flops = flash_bytes_flops(B, S, H, kvH, hd, 2, "flash_fwd", alibi)
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, fwd_flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+    forms, fwd_readings = time_fwd_forms(
+        qs, k, v, sl, sdpa, fwd_bound, fwd_flops,
+        f"B {B} S {S} H {H} kvH {kvH} hd {hd}{' ALiBi' if alibi else ''}")
+    sdpa_fwd = forms.pop("sdpa")
     sdpa_out = sdpa()
     sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
                        iters=100)
@@ -1899,7 +2003,8 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
     for name, (kernel_fn, plain_fn) in calls.items():
         nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, name, alibi)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        t = {"ms": time_fn(kernel_fn, iters=100), "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
+        ms = forms["wgmma"] if name == "flash_fwd" else time_fn(kernel_fn, iters=100)
+        t = {"ms": ms, "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
              "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": library[name]}
         key = name + suffix
@@ -1917,7 +2022,10 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
                      **{k2: t[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms")})
         if alibi:
-            entry["form"] = "ALiBi (_alibi_add, deepspeed_tpu/ops/pallas/flash_attention.py:158)"
+            entry["alibi"] = "_alibi_add, deepspeed_tpu/ops/pallas/flash_attention.py:158"
+        if name == "flash_fwd":
+            entry.update(form="wgmma", mma_ms=forms["mma"], turns_ms=fwd_readings,
+                         launches_by_form=launches["flash_fwd_by_form"])
         kernels.append(entry)
     if alibi:  # the form without ALiBi at the same shape: what the bias costs
         for name, fn in (("flash_fwd", lambda: fa.flash_fwd(qs, k, v, None)),
@@ -1929,6 +2037,25 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
             timing[f"{name}[{B},{S},{H},{kvH},{hd}]"] = {"ms": without}
             log(f"[time] {name} without ALiBi at the same shape: {without:.4f} ms; the ALiBi "
                 f"form {with_bias:.4f} ms ({100 * (with_bias / without - 1):+.1f} %)")
+    if not alibi:  # the forward at hd 128 (the Llama-3-8B heads): its forms beside SDPA
+        s8 = FLASH_SETS["llama3-8b heads"]
+        q8, k8, v8 = (t.to(torch.bfloat16) for t in flash_inputs(dev, **s8)[:3])
+        qt8, kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (q8, k8, v8))
+        nbytes8, flops8 = flash_bytes_flops(s8["B"], s8["S"], s8["H"], s8["kvH"], s8["hd"], 2,
+                                            "flash_fwd")
+        t_b, t_o = nbytes8 / HBM_BYTES_PER_S * 1e3, flops8 / PEAK_FLOPS[torch.bfloat16] * 1e3
+        tag8 = f"B {s8['B']} S {s8['S']} H {s8['H']} kvH {s8['kvH']} hd {s8['hd']}"
+        forms8, readings8 = time_fwd_forms(
+            fa.prescale_q(q8), k8, v8, None,
+            lambda: F.scaled_dot_product_attention(qt8, kt8, vt8, is_causal=True, enable_gqa=True),
+            max(t_b, t_o), flops8, tag8)
+        hd128 = {"shape": f"q [{s8['B']}, {s8['S']}, {s8['H']}, {s8['hd']}], kv heads {s8['kvH']}, "
+                          f"bf16", "ms": forms8["wgmma"], "mma_ms": forms8["mma"],
+                 "library_ms": forms8.pop("sdpa"), "bound_ms": max(t_b, t_o),
+                 "bound_by": "bytes" if t_b >= t_o else "operations", "turns_ms": readings8}
+        timing["flash_fwd hd128"] = hd128
+        kernels[0]["hd128"] = hd128
+        del q8, k8, v8, qt8, kt8, vt8
     bwd_sum = sum(timing[f"{n}{suffix}[{B},{S},{H},{kvH},{hd}]"]["ms"]
                   for n in ("flash_bwd_dq", "flash_bwd_dkv"))
     timing[f"sdpa_backward_vs_dq_plus_dkv{suffix}"] = {"sdpa_bwd_ms": sdpa_bwd,
@@ -2085,13 +2212,16 @@ def grouped_library_call(lhs, rhs, gs):
     return "per-group cuBLAS loop", loop
 
 
-def time_turns(fns, iters):
-    """Each function of ``fns`` timed twice by ``time_fn``, in the order
-    given and then in reverse (a b c c b a), on one card: the mean of its
-    two readings."""
+def time_turns(fns, iters, rounds=1, readings=None):
+    """Each function of ``fns`` timed twice a round by ``time_fn``, in the
+    order given and then in reverse (a b c c b a), on one card: the mean of
+    its readings. ``readings``, if given, receives each one's list."""
     got = {name: [] for name in fns}
-    for name in list(fns) + list(reversed(fns)):
-        got[name].append(time_fn(fns[name], iters=iters))
+    for _ in range(rounds):
+        for name in list(fns) + list(reversed(fns)):
+            got[name].append(time_fn(fns[name], iters=iters))
+    if readings is not None:
+        readings.update(got)
     return {name: sum(ts) / len(ts) for name, ts in got.items()}
 
 
@@ -2984,7 +3114,9 @@ def main(argv=None) -> int:
     log(f"[build] compiled {built or 'nothing (cached)'} in {build_s:.1f} s")
     for name, text in op_builder.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            # ptxas -v: registers, spills, errors, wgmma serialisation (C75xx)
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "(C75" in line):
                 log(f"[build:{name}] {line.strip()}")
     results["build_s"] = build_s
 
@@ -3130,6 +3262,9 @@ def main(argv=None) -> int:
                "collectives": coll_launches, "fused gemm": fused_launches}
     launches = {k: sum(path[k] for path in by_path.values()) for k in serve_launches}
     results["launches_by_path"] = by_path
+    trainings = ("train llama3-1b", "train bloom-560m", "train llama3-1b sparse", "train gpt2-125m")
+    launches["flash_fwd_by_form"] = {f: sum(results[tag]["flash_fwd_by_form"][f] for tag in trainings)
+                                     for f in fa.FWD_FORMS}
     kernels = phase_time(dev, checks, launches, max_err, results)
     if any(kernel["launches"] == 0 for kernel in kernels):
         log("[time] FAILED: a kernel was launched no time on the main path")

@@ -62,7 +62,10 @@
 // rows and keys past S are loaded as zeros and masked, nothing is padded in
 // device memory. fp32 inputs take the same code with the products done by
 // FMAs in the same fragment layout, P and dS passing through shared memory
-// (a check path, not a fast one). No wgmma/TMA, no cp.async pipelining yet.
+// (a check path, not a fast one). dq and dkv have no wgmma/TMA form yet; the
+// forward's bf16 inputs take its form W (flash_attention_fwd.cu: wgmma fed
+// by TMA, warp-specialised), and the forward described here stays as its
+// "mma" form, timed beside it.
 
 #pragma once
 

@@ -65,7 +65,6 @@
 // masked stores. The kernels allocate nothing and launch on the caller's
 // stream.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +72,9 @@
 #include <algorithm>
 
 #include "hop_wire.cuh"  // sm_count
+#include "hopper.cuh"    // mbarrier, TMA, wgmma, the tensor-map encoder
+
+using namespace hopper;
 
 namespace {
 
@@ -129,10 +131,6 @@ __device__ int count_tiles(const int* __restrict__ group_sizes, int E, int m, in
   return tiles;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
@@ -164,97 +162,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------- TMA, mbarrier, wgmma
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Spin until the phase of parity `parity` has completed. A phase that has not
-// completed after 10 s (a copy that never lands) traps, so that the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const unsigned addr = smem_addr(bar);
-  unsigned done = 0;
-  uint64_t start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = global_ns();
-    } else if (global_ns() - start > 10000000000ull) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                            int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                            int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// The 1024-byte aligned start of dynamic shared memory (the 128-byte swizzle's atom).
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start, leading and stride
-// byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // d[64 x 256] += A[64 x 16] (K-major) * B[16 x 256] (MN-major: the transpose bit)
@@ -506,7 +413,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constan
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -556,7 +463,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constan
           wgmma_m64n256k16(acc, wgmma_desc(a + kk * 32, 16, 1024),
                            wgmma_desc(b + kk * 2048, kPBBox, 1024));
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
       }
       if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
       if (++s == kPStages) {
@@ -625,7 +532,7 @@ gmm_stream_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_consta
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4);  // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -720,53 +627,7 @@ gmm_stream_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_consta
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
-// library links against nothing but the CUDA runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
-// strides in bytes of the dimensions past the first. Boxes past an edge are
-// zero-filled.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Raises kernel's dynamic shared-memory limit to bytes once per device (done[dev]
-// remembers it): the attribute holds for the device's later launches.
-constexpr int kMaxDevices = 64;
 bool bf16_smem_set[kMaxDevices], wgmma_smem_set[kMaxDevices], stream_smem_set[kMaxDevices];
-
-cudaError_t allow_smem(const void* kernel, int bytes, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev >= 0 && dev < kMaxDevices && done[dev])) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) done[dev] = true;
-  return err;
-}
 
 // form codes, shared with ops/grouped_matmul.py
 enum Form { kSimt = 0, kMma = 1, kWgmma = 2, kStream = 3 };

@@ -13,7 +13,13 @@ three Pallas kernels calls).
 Each wrapper runs its plain version (``*_reference``) on a CPU tensor and on
 a CUDA tensor launches its hand-written kernel
 (``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd_dq.cu``,
-``flash_attention_bwd_dkv.cu``) or raises. ``flash_causal_attention`` ties
+``flash_attention_bwd_dkv.cu``) or raises. The forward has three forms
+(``FWD_FORMS``), picked by ``flash_fwd_form`` from the dtype: form W
+(``"wgmma"``: wgmma fed by TMA, warp-specialised, every bf16 input) and
+``"simt"`` (fp32, a check path); the first bf16 form (``"mma"``, mma.sync) is
+reached only through ``_flash_fwd_form``, which runs one form by name (the
+card's tests and timing). Each forward launch counts in
+``flash_fwd.launches_by_form`` too. ``flash_causal_attention`` ties
 them together in a ``torch.autograd.Function`` with the bookkeeping of the JAX package's
 ``_flash_core`` and ``_flash_vjp_bwd``:
 
@@ -58,6 +64,9 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 # Pallas scheduling knobs of the JAX kernel; the same math either way, so the
 # port accepts and ignores them (as the JAX XLA path does)
 _SCHEDULING_KWARGS = ("block_q", "block_k", "k_splits")
+# forward form name -> the C entry's form code (csrc/flash_attention_fwd.cu, enum Form)
+FWD_FORMS = {"simt": 0, "mma": 1, "wgmma": 2}
+_FORM_DTYPE = {"simt": torch.float32, "mma": torch.bfloat16, "wgmma": torch.bfloat16}
 
 
 # ------------------------------------------------------------ plain versions
@@ -203,21 +212,54 @@ def _count(wrapper, slopes) -> None:
         wrapper.launches += 1
 
 
+def flash_fwd_form(dtype: torch.dtype, hd: int) -> str:
+    """The forward form ``flash_fwd`` runs: form W (``"wgmma"``) for bf16,
+    ``"simt"`` for fp32."""
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash attention: head_dim {hd} unsupported (one of {SUPPORTED_HEAD_DIMS})")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"flash attention: dtype {dtype} unsupported (fp32 | bf16)")
+
+
+def _fwd_launch(qs, k, v, keep, slopes, form: str):
+    """Allocate the outputs and launch forward ``form``; count the launch."""
+    B, S, H, hd = qs.shape
+    out = torch.empty_like(qs)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=qs.device)
+    op_builder.launch("flash_attention_fwd", "ds_flash_fwd", qs.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), _ptr(keep), _ptr(slopes), out.data_ptr(), lse.data_ptr(),
+                      B, S, H, k.shape[2], hd, op_builder.DTYPE_CODES[qs.dtype], FWD_FORMS[form],
+                      torch.cuda.current_stream(qs.device).cuda_stream)
+    _count(flash_fwd, slopes)
+    flash_fwd.launches_by_form[form] += 1
+    return out, lse
+
+
 def flash_fwd(qs, k, v, keep=None, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on pre-scaled ``qs``: ``(out [B, S, H, hd], lse [B, H, S] fp32)``."""
     _check_slopes(qs, slopes)
     if qs.device.type == "cpu":
         return flash_fwd_reference(qs, k, v, keep, slopes)
     _check(qs, k, v, keep)
-    B, S, H, hd = qs.shape
-    out = torch.empty_like(qs)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=qs.device)
-    op_builder.launch("flash_attention_fwd", "ds_flash_fwd", qs.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), _ptr(keep), _ptr(slopes), out.data_ptr(), lse.data_ptr(),
-                      B, S, H, k.shape[2], hd, op_builder.DTYPE_CODES[qs.dtype],
-                      torch.cuda.current_stream(qs.device).cuda_stream)
-    _count(flash_fwd, slopes)
-    return out, lse
+    return _fwd_launch(qs, k, v, keep, slopes, flash_fwd_form(qs.dtype, qs.shape[3]))
+
+
+def _flash_fwd_form(qs, k, v, keep, slopes, form: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_fwd`` through the named form, whatever ``flash_fwd_form`` would
+    choose; raises ``ValueError`` for a form or dtype that does not fit and
+    for a CPU tensor (a form is a kernel)."""
+    if form not in FWD_FORMS:
+        raise ValueError(f"flash attention: unknown form {form!r}; forms are {sorted(FWD_FORMS)}")
+    if qs.device.type != "cuda":
+        raise ValueError(f"flash attention: form {form!r} is a kernel; {qs.device} tensor given")
+    _check_slopes(qs, slopes)
+    _check(qs, k, v, keep)
+    if qs.dtype != _FORM_DTYPE[form]:
+        raise ValueError(f"flash attention: form {form!r} does not take {qs.dtype}")
+    return _fwd_launch(qs, k, v, keep, slopes, form)
 
 
 def flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
@@ -257,6 +299,7 @@ def flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes=None) -> Tuple[torch.Te
 for _wrapper in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.alibi_launches = 0
+flash_fwd.launches_by_form = dict.fromkeys(FWD_FORMS, 0)
 
 
 # ------------------------------------------------------------ autograd
@@ -328,7 +371,7 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "NEG_INF", "alibi_log2", "flash_bwd_dkv", "flash_bwd_dkv_reference", "flash_bwd_dq",
-    "flash_bwd_dq_reference", "flash_causal_attention", "flash_delta", "flash_fwd",
-    "flash_fwd_reference", "prescale_q",
+    "FWD_FORMS", "NEG_INF", "alibi_log2", "flash_bwd_dkv",
+    "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference", "flash_causal_attention",
+    "flash_delta", "flash_fwd", "flash_fwd_form", "flash_fwd_reference", "prescale_q",
 ]

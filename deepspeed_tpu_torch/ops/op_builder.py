@@ -74,8 +74,9 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "ds_dequantize_int8": [_P, _P, _I64, _I, _I, _P, _P],
     },
     "flash_attention_fwd": {
-        # q, k, v, keep (or NULL), slopes (or NULL), out, lse, B, S, H, kvH, hd, dtype, stream
-        "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # q, k, v, keep (or NULL), slopes (or NULL), out, lse, B, S, H, kvH, hd, dtype,
+        # form (ops/flash_attention.py FWD_FORMS), stream
+        "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention_bwd_dq": {
         # q, k, v, keep, slopes, dout, lse, delta, dq, B, S, H, kvH, hd, scale, dtype, stream

@@ -141,20 +141,49 @@ def check_flash_kernels(q, k, v, do, keep=None, slopes=None):
         ok = bool(torch.isfinite(got).all()) and got.dtype == q.dtype and got.shape == want.shape
         readings[name] = (row_rel_l2(got, want) if ok else float("inf"),
                           float((got.float() - want.float()).abs().max()))
-    B, S = q.shape[:2]
-    # a query row sees a key iff some key j <= i is kept
-    kept = torch.ones(B, S, dtype=torch.int32, device=q.device) if keep is None else keep
-    live = kept.cumsum(1) > 0  # [B, S]
-    err = (lse - want_lse).abs().transpose(1, 2)[live]
-    scale = want_lse.abs().clamp_min(10.0).transpose(1, 2)[live]
-    if slopes is not None:
-        err = err / scale
-    lse_err = float(err.max()) if err.numel() else 0.0
+    lse_err, live, kept = _lse_error(q, keep, slopes, lse, want_lse)
     dead, dropped = ~live, kept == 0
     dead_exact = (bool((out[dead] == 0).all()) and bool((dq[dead] == 0).all())
                   and bool((lse.transpose(1, 2)[dead] == fa.NEG_INF).all())
                   and bool((dk[dropped] == 0).all()) and bool((dv[dropped] == 0).all()))
     return readings, lse_err, dead_exact
+
+
+def _lse_error(q, keep, slopes, lse, want_lse):
+    """The lse's largest error over rows with a visible key (absolute, or
+    with ``slopes`` as a share of ``max(|lse|, 10)``), the ``[B, S]`` mask
+    of those rows, and the keep-mask (all ones where there is none)."""
+    B, S = q.shape[:2]
+    # a query row sees a key iff some key j <= i is kept
+    kept = torch.ones(B, S, dtype=torch.int32, device=q.device) if keep is None else keep
+    live = kept.cumsum(1) > 0  # [B, S]
+    err = (lse - want_lse).abs().transpose(1, 2)[live]
+    if slopes is not None:
+        err = err / want_lse.abs().clamp_min(10.0).transpose(1, 2)[live]
+    return (float(err.max()) if err.numel() else 0.0), live, kept
+
+
+def check_flash_fwd(q, k, v, keep=None, slopes=None, form=None):
+    """The forward kernel alone (the form ``flash_fwd`` picks, or ``form``
+    through ``_flash_fwd_form``) against its plain version
+    on the same inputs, as ``check_flash_kernels`` holds it. Returns (out's
+    row rel L2, its max abs error, the lse error, whether every row with no
+    visible key has output 0 and the lse sentinel, the output)."""
+    qs = fa.prescale_q(q)
+    if form is None:
+        out, lse = fa.flash_fwd(qs, k, v, keep, slopes)
+    else:
+        out, lse = fa._flash_fwd_form(qs, k, v, keep, slopes, form)
+    if q.is_cuda:
+        torch.cuda.synchronize(q.device)
+    want, want_lse = fa.flash_fwd_reference(qs, k, v, keep, slopes)
+    ok = bool(torch.isfinite(out).all()) and out.dtype == q.dtype and out.shape == want.shape
+    rel = row_rel_l2(out, want) if ok else float("inf")
+    lse_err, live, _ = _lse_error(q, keep, slopes, lse, want_lse)
+    dead = ~live
+    dead_exact = (bool((out[dead] == 0).all())
+                  and bool((lse.transpose(1, 2)[dead] == fa.NEG_INF).all()))
+    return rel, float((out.float() - want.float()).abs().max()), lse_err, dead_exact, out
 
 
 def check_sparse_kernels(q, k, v, do, layout, block, causal):

@@ -19,6 +19,8 @@ left-padded. The port adds ``slope * log2(e) * (j - i)`` where JAX adds
 and the port's lse plus ``slope * log2(e) * i`` is JAX's.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,3 +217,215 @@ def test_alibi_log2_is_kept_per_slopes_tensor():
     assert fa.alibi_log2(other) is not scaled
     other.mul_(2.0)
     np.testing.assert_allclose(fa.alibi_log2(other).numpy(), 2 * scaled.numpy(), rtol=1e-7)
+
+
+def test_flash_fwd_form_choices():
+    """The forward's form follows the dtype alone: form W ("wgmma") for
+    bf16 at both head dims, the SIMT form for fp32; the mma.sync form is
+    never picked. Other head dims and dtypes raise."""
+    for hd in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.flash_fwd_form(torch.bfloat16, hd) == "wgmma"
+        assert fa.flash_fwd_form(torch.float32, hd) == "simt"
+    with pytest.raises(ValueError):
+        fa.flash_fwd_form(torch.bfloat16, 96)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_form(torch.float16, 64)
+    assert set(fa.FWD_FORMS) == {"simt", "mma", "wgmma"}
+    assert set(fa.flash_fwd.launches_by_form) == set(fa.FWD_FORMS)
+
+
+def test_flash_fwd_launches_by_form_sum_to_launches(monkeypatch):
+    """Each forward launch counts once in its form and once in ``launches``
+    or ``alibi_launches``, and passes its form's code to the C entry. The
+    launcher is stubbed: there is no card here."""
+    calls = []
+    monkeypatch.setattr(fa.op_builder, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(fa.flash_fwd, "launches", 3)
+    monkeypatch.setattr(fa.flash_fwd, "alibi_launches", 2)
+    monkeypatch.setattr(fa.flash_fwd, "launches_by_form", {"simt": 4, "mma": 0, "wgmma": 1})
+    qs = torch.zeros(1, 5, 4, 64, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 5, 2, 64, dtype=torch.bfloat16)
+    slopes = torch.ones(4)
+    order = [("wgmma", None), ("wgmma", slopes), ("mma", None), ("simt", slopes), ("wgmma", None)]
+    for form, sl in order:
+        out, lse = fa._fwd_launch(qs, k, v, None, sl, form)
+        assert out.shape == qs.shape and out.dtype == qs.dtype
+        assert lse.shape == (1, 4, 5) and lse.dtype == torch.float32
+    assert [(a[-3], a[-2]) for a in calls] == [
+        (fa.op_builder.DTYPE_CODES[torch.bfloat16], fa.FWD_FORMS[f]) for f, _ in order]
+    assert fa.flash_fwd.launches_by_form == {"simt": 5, "mma": 1, "wgmma": 4}
+    assert (fa.flash_fwd.launches, fa.flash_fwd.alibi_launches) == (6, 4)
+    assert sum(fa.flash_fwd.launches_by_form.values()) == (fa.flash_fwd.launches
+                                                           + fa.flash_fwd.alibi_launches)
+
+
+# ---- form W's turn order (csrc/flash_attention_fwd.cu): a model on the CPU.
+# The consumer warpgroups take turns at the tensor cores through named
+# barriers: warpgroup w waits (bar.sync) on barrier 1 + w and another
+# warpgroup hands it the turn (bar.arrive); each barrier counts 256 threads,
+# one warpgroup's sync and one other's arrival. A miscount hangs the launch
+# (bar.sync does not trap), so the order is checked here first, over every
+# interleaving of the warpgroups, for every first query row q0 of a block.
+_FWD_SOURCE = Path(fa.__file__).resolve().parent.parent / "csrc" / "flash_attention_fwd.cu"
+# the kernel's lines that the model mirrors, whitespace aside
+_TURN_ORDER_SOURCE = """
+  if (kPP && wg == kWG - 1) bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+  const auto tiles_of = [&](int w) {
+    const int last = q0 + 64 * w + 63;
+    return last < 0 ? 1 : last / kBN + 1;
+  };
+  const int my_tiles = tiles_of(wg);
+  const auto take_turn = [&](int r) {
+    if (kPP && !(wg == kWG - 1 && r >= 1 && tiles_of(kWG - 2) < r)) bar_sync(1 + wg, 256);
+  };
+  const auto hand_over = [&](int r) {
+    if (!kPP) return;
+    if (wg < kWG - 1) {
+      bar_arrive(2 + wg, 256);
+    } else if (r < my_tiles) {
+      int next = 0;
+      while (tiles_of(next) <= r) ++next;
+      if (next != wg) bar_arrive(1 + next, 256);
+    }
+  };
+"""
+_KBN = 128  # keys a step
+
+
+def _tiles_of(q0, w):
+    last = q0 + 64 * w + 63
+    return 1 if last < 0 else last // _KBN + 1
+
+
+def _hand_over_ok(q0, wg, n_wg, r):
+    """The kernel's ``hand_over(r)``: the barrier warpgroup ``wg`` arrives at, or None."""
+    if wg < n_wg - 1:
+        return 2 + wg
+    if r < _tiles_of(q0, wg):
+        nxt = 0
+        while _tiles_of(q0, nxt) <= r:
+            nxt += 1
+        if nxt != wg:
+            return 1 + nxt
+    return None
+
+
+def _hand_over_always_next(q0, wg, n_wg, r):
+    """A wrong order: the last warpgroup hands warpgroup 0 the turn every
+    round, even after warpgroup 0's last tile."""
+    return 2 + wg if wg < n_wg - 1 else (1 if r < _tiles_of(q0, wg) else None)
+
+
+def _turn_program(q0, wg, n_wg, hand_over):
+    """Warpgroup ``wg``'s barrier operations in order: ("sync" | "arrive", id)."""
+    ops = [("arrive", 1)] if wg == n_wg - 1 else []  # warpgroup 0 takes the first turn
+    # turn r = 0 .. my_tiles: tile 0's Q K^T, tile r's Q K^T with tile r - 1's
+    # P V, the last tile's P V; each a take_turn(r), the products, a hand_over(r)
+    for r in range(_tiles_of(q0, wg) + 1):
+        if not (wg == n_wg - 1 and r >= 1 and _tiles_of(q0, n_wg - 2) < r):
+            ops.append(("sync", 1 + wg))
+        to = hand_over(q0, wg, n_wg, r)
+        if to is not None:
+            ops.append(("arrive", to))
+    return ops
+
+
+def _turn_order_fault(q0, n_wg, hand_over=_hand_over_ok):
+    """Every interleaving of the warpgroups' barrier operations: None if each
+    ``bar.sync`` meets exactly one arrival from another warpgroup, no barrier
+    ever holds two arrivals with no warpgroup waiting, and every warpgroup
+    ends; else what went wrong."""
+    progs = [_turn_program(q0, wg, n_wg, hand_over) for wg in range(n_wg)]
+    # state: each warpgroup's next operation and whether it waits at a
+    # bar.sync; each barrier's arrivals not yet met by a sync
+    start = (tuple(0 for _ in progs), tuple(False for _ in progs), tuple(0 for _ in range(n_wg + 1)))
+    seen, todo = {start}, [start]
+    while todo:
+        pcs, waiting, pending = todo.pop()
+        moves = []
+        for wg, prog in enumerate(progs):
+            if waiting[wg] or pcs[wg] == len(prog):
+                continue
+            kind, bar = prog[pcs[wg]]
+            pc, wt, pd = list(pcs), list(waiting), list(pending)
+            if kind == "sync":
+                if bar != 1 + wg:
+                    return f"warpgroup {wg} waits on barrier {bar}, not its own"
+                if pd[bar]:  # the arrival came first: the barrier completes
+                    pd[bar], pc[wg] = 0, pc[wg] + 1
+                else:
+                    wt[wg] = True
+            else:
+                if bar == 1 + wg:
+                    return f"warpgroup {wg} arrives at its own barrier {bar}"
+                pc[wg] += 1
+                owner = bar - 1
+                if owner < n_wg and wt[owner]:  # the owner waits: the barrier completes
+                    wt[owner], pc[owner] = False, pc[owner] + 1
+                else:
+                    pd[bar] += 1
+                    if pd[bar] > 1:
+                        return f"barrier {bar} holds two arrivals with no warpgroup waiting"
+            moves.append((tuple(pc), tuple(wt), tuple(pd)))
+        if not moves and not all(pc == len(p) for pc, p in zip(pcs, progs)):
+            return f"deadlock at operations {pcs} (waiting {waiting})"
+        if not moves and any(pending):
+            return f"arrivals left unmet at the end: {pending}"
+        for state in moves:
+            if state not in seen:
+                seen.add(state)
+                todo.append(state)
+    return None
+
+
+def test_form_w_turn_order_source_is_the_modelled_one():
+    """The model below mirrors these lines of form W; a change to them must
+    change the model too (and pass it) before the kernel runs on a card."""
+    text = _FWD_SOURCE.read_text()
+    for line in _TURN_ORDER_SOURCE.strip().splitlines():
+        assert " ".join(line.split()) in " ".join(text.split()), line
+
+
+@pytest.mark.parametrize("n_wg", [2, 3])
+def test_form_w_turn_order_never_hangs(n_wg):
+    """Two consumer warpgroups (hd 128) and three (hd 64): over every first
+    row q0 of a block (a partial first tile, q0 < 0, and two 128-row periods
+    of the tile counts), every barrier balances in every interleaving."""
+    faults = {q0: _turn_order_fault(q0, n_wg) for q0 in range(1 - 64 * n_wg, 2 * _KBN)}
+    assert {q0: f for q0, f in faults.items() if f} == {}
+
+
+def test_form_w_turn_order_model_finds_a_wrong_order():
+    """The model is not vacuous: handing warpgroup 0 a turn after its last
+    tile leaves an arrival unmet or two pending where the tile counts differ."""
+    faults = [_turn_order_fault(q0, 3, _hand_over_always_next) for q0 in range(-191, 256)]
+    assert any(faults)
+    assert _turn_order_fault(0, 3, _hand_over_always_next) is not None
+
+
+def test_cpu_flash_fwd_takes_the_plain_version(monkeypatch):
+    """A CPU tensor takes ``flash_fwd_reference`` with no launch of any
+    form, every counter unchanged, with and without ALiBi; a form by name
+    refuses a CPU tensor (a form is a kernel), as it refuses an unknown form."""
+    plain_calls = []
+    real_plain = fa.flash_fwd_reference
+    monkeypatch.setattr(fa, "flash_fwd_reference",
+                        lambda *a: plain_calls.append(1) or real_plain(*a))
+    q, k, v, _, mask = _inputs(40, 2, 16, True)
+    qs, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    keep = torch.from_numpy(mask)
+    slopes = fa.alibi_log2(torch.from_numpy(_slopes(True)))
+    before = (fa.flash_fwd.launches, fa.flash_fwd.alibi_launches,
+              dict(fa.flash_fwd.launches_by_form))
+    for sl in (None, slopes):
+        out, lse = fa.flash_fwd(qs, kt, vt, keep, sl)
+        want, want_lse = real_plain(qs, kt, vt, keep, sl)
+        assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    assert plain_calls == [1, 1]
+    assert (fa.flash_fwd.launches, fa.flash_fwd.alibi_launches,
+            dict(fa.flash_fwd.launches_by_form)) == before
+    for form in list(fa.FWD_FORMS) + ["wmma"]:
+        with pytest.raises(ValueError):
+            fa._flash_fwd_form(qs, kt, vt, keep, None, form)

@@ -31,8 +31,13 @@ log2(e)) is held to the same limits at G = 1 and G = 4, hd 64 and 128, S not
 a multiple of the 64-row tile and a keep-mask with a keyless row, except lse:
 the bias moves it to ~10^2-10^3 past a keep-mask's end, where an fp32 ulp
 passes 1e-5, so its error is held to 1e-6 of max(|lse|, 10) (about 8 ulps);
-ALiBi launches count in ``alibi_launches`` only. The quantiser kernels (int8 nearest and
-stochastic, dequantisation) must equal their plain versions bit for bit:
+ALiBi launches count in ``alibi_launches`` only. The forward's form W (bf16:
+wgmma fed by TMA) is held alone by the same limits (``check_flash_fwd``) at S
+= 1, 65, 127, 129 and 1000 (ragged keep-mask 1000, 613, 0), G = 1, 4 and 8,
+hd 64 and 128, with and without ALiBi; left-padded rows with no visible key
+are exactly 0 with the lse sentinel; the mma.sync form stays within the same
+limits of form W. The quantiser kernels (int8 nearest and stochastic,
+dequantisation) must equal their plain versions bit for bit:
 both divide and round in IEEE fp32 and hash the same counters. The
 quantised paged kernel (int8 and e4m3 pools) is held to the limits of the
 bf16/fp32 one. The three block-sparse kernels (forward, dq, dkv) are held to
@@ -107,6 +112,7 @@ from deepspeed_tpu_torch.utils.checks import (
     LSE_ALIBI_REL,
     bits_differ,
     block_wire,
+    check_flash_fwd,
     check_flash_kernels,
     check_grouped_matmul,
     check_sparse_kernels,
@@ -509,6 +515,66 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
                      v[..., :32].contiguous())
     with pytest.raises(TypeError):
         fa.flash_fwd(q, k.bfloat16(), v)
+
+
+FWD_W_CASES = {
+    "s1_g4": dict(B=1, S=1, H=8, kvH=2, hd=64),
+    "s65_g1_hd128": dict(B=2, S=65, H=4, kvH=4, hd=128),
+    "s127_g8": dict(B=1, S=127, H=8, kvH=1, hd=64),
+    "s129_g4_hd128": dict(B=2, S=129, H=8, kvH=2, hd=128),
+    "s129_g1": dict(B=2, S=129, H=4, kvH=4, hd=64),
+    "s1000_keep_g4": dict(B=3, S=1000, H=8, kvH=2, hd=64, keep_lens=(1000, 613, 0)),
+    "s1000_keep_g8_hd128": dict(B=3, S=1000, H=8, kvH=1, hd=128, keep_lens=(1000, 613, 0)),
+}
+
+
+def _fwd_w_check(dev, shape, alibi, form=None, seed=3):
+    """Form W (or ``form``) on bf16 inputs of ``shape`` against the plain
+    forward, by the flash kernels' limits; returns the output."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    q, k, v, _, keep = flash_inputs(dev, **shape, seed=seed)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    slopes = fa.alibi_log2(alibi_slopes(q.shape[2], dev)) if alibi else None
+    rel, _, lse_err, dead_exact, out = check_flash_fwd(q, k, v, keep, slopes, form)
+    assert rel <= 2e-2, rel
+    assert dead_exact
+    assert lse_err <= (LSE_ALIBI_REL if alibi else 1e-4), lse_err
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
+@pytest.mark.parametrize("case", sorted(FWD_W_CASES))
+def test_flash_fwd_form_w_matches_plain(cuda_device, case, alibi):
+    """The wrapper runs form W for bf16: one launch of it, counted by form."""
+    before = dict(fa.flash_fwd.launches_by_form)
+    _fwd_w_check(cuda_device, FWD_W_CASES[case], alibi)
+    assert fa.flash_fwd.launches_by_form == dict(before, wgmma=before["wgmma"] + 1)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_form_w_left_padded_rows_are_zero(cuda_device):
+    """Left padding in bf16: rows whose visible keys the keep-mask all drops
+    get output exactly 0 and the lse sentinel from form W."""
+    q, k, v, _, _ = flash_inputs(cuda_device, B=2, S=300, H=8, kvH=2, hd=64, seed=3)
+    keep = torch.ones(2, 300, dtype=torch.int32, device=cuda_device)
+    keep[1, :200] = 0
+    out, lse = fa.flash_fwd(fa.prescale_q(q.bfloat16()), k.bfloat16(), v.bfloat16(), keep)
+    torch.cuda.synchronize()
+    assert torch.all(out[1, :200] == 0) and torch.all(lse[1, :, :200] == fa.NEG_INF)
+    assert torch.all(torch.isfinite(out)) and bool((out[1, 200:] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
+def test_flash_fwd_mma_form_matches_form_w(cuda_device, alibi):
+    """The mma.sync form, reached only by name, against the plain forward and
+    within the same limit of form W's output."""
+    shape = FWD_W_CASES["s1000_keep_g4"]
+    w = _fwd_w_check(cuda_device, shape, alibi)
+    mma = _fwd_w_check(cuda_device, shape, alibi, form="mma")
+    assert row_rel_l2(mma, w) <= 2e-2
 
 
 def test_cpu_flash_alibi_takes_the_plain_versions():
