@@ -254,6 +254,7 @@ from deepspeed_tpu_torch.utils.checks import (
     LSE_ALIBI_REL,
     bits_differ,
     block_wire,
+    check_flash_bwd,
     check_flash_fwd,
     check_flash_kernels,
     check_grouped_matmul,
@@ -264,6 +265,7 @@ from deepspeed_tpu_torch.utils.checks import (
     grouped_inputs,
     plain_collective_kernels,
     routed_group_sizes,
+    row_rel_l2,
 )
 
 # the module (``deepspeed_tpu_torch.ops`` re-exports its function of the same name)
@@ -367,9 +369,15 @@ FLASH_ALIBI_SETS = {
     "llama3-8b heads": dict(B=1, S=2048, H=32, kvH=8, hd=128),
     "ragged S=1000 keep-mask": dict(B=3, S=1000, H=32, kvH=8, hd=64, keep_lens=(1000, 613, 0)),
 }
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the flash wrappers the training path calls: the forward and the backward
+# (form W for bf16: one kernel for dq, dk and dv)
+FLASH_KERNELS = ("flash_fwd", "flash_bwd")
 # launch counters of their ALiBi form (``<wrapper>.alibi_launches``)
 FLASH_ALIBI_KERNELS = tuple(f"{k}_alibi" for k in FLASH_KERNELS)
+# the backward's dq and dkv pair (its "mma" and "simt" forms), held alone by
+# phase 2; the training path launches neither
+FLASH_PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
+FLASH_PAIR_ALIBI = tuple(f"{k}_alibi" for k in FLASH_PAIR)
 SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # BigBird as the model config gives it (the JAX defaults: 1 random block, a
 # 3-block window, 1 global block, seed 0) at the BigBird paper's length
@@ -460,8 +468,9 @@ def counted() -> dict:
             "paged_attention_quant": (paged_attention_quant, "launches"),
             "paged_attention_alibi": (paged_attention, "alibi_launches"),
             **{name: (getattr(quant_mod, name), "launches") for name in QUANT_KERNELS},
-            **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS},
-            **{f"{name}_alibi": (getattr(fa, name), "alibi_launches") for name in FLASH_KERNELS},
+            **{name: (getattr(fa, name), "launches") for name in FLASH_KERNELS + FLASH_PAIR},
+            **{f"{name}_alibi": (getattr(fa, name), "alibi_launches")
+               for name in FLASH_KERNELS + FLASH_PAIR},
             **{name: (getattr(bs, name), "launches") for name in SPARSE_KERNELS},
             "grouped_matmul": (gmm_mod.grouped_matmul, "launches"),
             **{name: (getattr(hop_mod, name), "launches") for name in COLL_KERNELS},
@@ -478,6 +487,7 @@ def zero_counts() -> None:
         setattr(fn, attr, 0)
     gmm_mod.grouped_matmul.launches_by_form.update(dict.fromkeys(gmm_mod.FORMS, 0))
     fa.flash_fwd.launches_by_form.update(dict.fromkeys(fa.FWD_FORMS, 0))
+    fa.flash_bwd.launches_by_form.update(dict.fromkeys(fa.BWD_FORMS, 0))
     model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
 
 
@@ -699,6 +709,53 @@ def check_flash_forms(dev, max_err):
             + (f" FAIL {bad}" if bad else " ok"))
         failures += [f"flash_fwd form {name} {label}" for name in bad]
         del q, k, v, keep
+        torch.cuda.empty_cache()
+    return failures
+
+
+# the backward's bf16 forms, checked and timed by name: form W, which the
+# wrapper runs, and the mma.sync dq and dkv pair it replaced
+FLASH_BWD_FORMS = ("wgmma", "mma")
+
+
+def check_flash_bwd_forms(dev, max_err):
+    """Phase 2's backward checks by form: at each ``FLASH_FORM_SETS`` set,
+    bf16, with and without ALiBi, form W and the mma pair against the plain
+    version by FLASH_TOL (dq, dk and dv each), dq of rows with no visible key
+    and dk, dv of keys the keep-mask drops exactly 0; form W run twice on the
+    same inputs gives bit-equal dk and dv and dq within FLASH_TOL (its dq
+    partial sums land in any order)."""
+    failures = []
+    tol = FLASH_TOL[torch.bfloat16]
+    for label, _ in FLASH_FORM_SETS:
+        shape = FLASH_SETS.get(label) or FLASH_ALIBI_SETS[label]
+        q, k, v, do, keep = flash_inputs(dev, **shape)
+        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        for alibi in (False, True):
+            slopes = fa.alibi_log2(alibi_slopes(shape["H"], dev)) if alibi else None
+            texts, bad = [], []
+            for name in FLASH_BWD_FORMS:
+                readings, dead_exact, got = check_flash_bwd(q, k, v, do, keep, slopes, name)
+                ok = all(rel <= tol for rel, _ in readings.values()) and dead_exact
+                text = f"{name} " + "/".join(f"{r:.3e}" for r, _ in readings.values())
+                if name == "wgmma":  # its errors are the kernel line's; and a second run
+                    key = "flash_bwd_alibi" if alibi else "flash_bwd"
+                    max_err[key] = max([max_err[key]] + [a for _, a in readings.values()])
+                    again = check_flash_bwd(q, k, v, do, keep, slopes, name)[2]
+                    dq_rerun = row_rel_l2(again[0], got[0])
+                    bit_equal = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+                    ok = ok and dq_rerun <= tol and bit_equal
+                    text += f" (rerun: dq {dq_rerun:.2e}, dk dv bit-equal {bit_equal})"
+                    del again
+                texts.append(text)
+                if not ok:
+                    bad.append(name)
+                del got
+            log(f"[check] flash_bwd by form{' alibi' if alibi else ''} {label} bf16 (dq/dk/dv row "
+                f"rel L2; tol {tol}, empty rows and dropped keys exact): " + ", ".join(texts)
+                + (f" FAIL {bad}" if bad else " ok"))
+            failures += [f"flash_bwd form {name} {label}{' alibi' if alibi else ''}" for name in bad]
+        del q, k, v, do, keep
         torch.cuda.empty_cache()
     return failures
 
@@ -926,6 +983,7 @@ def phase_checks(dev, max_err):
                 failures.append(f"{form} {label} {dtype}")
             torch.cuda.empty_cache()
     failures += check_flash_forms(dev, max_err)
+    failures += check_flash_bwd_forms(dev, max_err)
     for label, shape in SPARSE_SETS.items():
         for dtype in (torch.bfloat16, torch.float32):
             ok, readings, lse_err = check_sparse(dev, shape, dtype)
@@ -1750,17 +1808,20 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
                                        dtype=np.int32)}
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
-    # the flash forward's plain version, spied on: never called on a CUDA tensor
-    plain_fwd_on_cuda = []
-    real_plain_fwd = fa.flash_fwd_reference
+    # the flash forward's and backward's plain versions, spied on: never
+    # called on a CUDA tensor
+    plain_on_cuda = []
 
-    def plain_fwd_spy(qs, *a, **kw):
-        if qs.is_cuda:
-            plain_fwd_on_cuda.append(1)
-        return real_plain_fwd(qs, *a, **kw)
+    def plain_spy(real):
+        def spy(qs, *a, **kw):
+            if qs.is_cuda:
+                plain_on_cuda.append(real.__name__)
+            return real(qs, *a, **kw)
+        return spy
 
     zero_counts()
-    with mock.patch.object(fa, "flash_fwd_reference", plain_fwd_spy):
+    with mock.patch.object(fa, "flash_fwd_reference", plain_spy(fa.flash_fwd_reference)), \
+            mock.patch.object(fa, "flash_bwd_reference", plain_spy(fa.flash_bwd_reference)):
         for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1770,9 +1831,12 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
             losses.append(metrics["loss"])
     launches = launch_counts()
     by_form = dict(fa.flash_fwd.launches_by_form)
-    # every bf16 forward launch is form W's
-    forms_ok = by_form == dict(dict.fromkeys(fa.FWD_FORMS, 0),
-                               wgmma=launches["flash_fwd"] + launches["flash_fwd_alibi"])
+    bwd_by_form = dict(fa.flash_bwd.launches_by_form)
+    # every bf16 forward and backward launch is form W's
+    forms_ok = (by_form == dict(dict.fromkeys(fa.FWD_FORMS, 0),
+                                wgmma=launches["flash_fwd"] + launches["flash_fwd_alibi"])
+                and bwd_by_form == dict(dict.fromkeys(fa.BWD_FORMS, 0),
+                                        wgmma=launches["flash_bwd"] + launches["flash_bwd_alibi"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     grad_norm = float(metrics["grad_norm"])
@@ -1788,19 +1852,21 @@ def phase_train(dev, tag, cfg, micro, seq, gas, expect_per_micro, results, profi
     log(f"[{tag}] step {timed:.4f} s (median of {TRAIN_TIMED}), {tok_s:.1f} tokens/s, MFU "
         f"{100 * mfu:.2f} % ({fpt / 1e9:.3f} GFLOP/token, 989 TFLOP/s bf16), peak memory "
         f"{peak_gb:.2f} GB; launches {launches} (expected {expect}); flash_fwd launches by form "
-        f"{by_form}, its plain version called on a CUDA tensor {len(plain_fwd_on_cuda)} times")
+        f"{by_form}, flash_bwd by form {bwd_by_form}; the plain forward or backward called on a "
+        f"CUDA tensor {len(plain_on_cuda)} times")
     results[tag] = {"losses": losses, "step_s": step_s, "median_step_s": timed, "tokens_per_s": tok_s,
                     "mfu": mfu, "flops_per_token": fpt, "peak_mem_gb": peak_gb,
-                    "launches": launches, "grad_norm": grad_norm, "flash_fwd_by_form": by_form}
+                    "launches": launches, "grad_norm": grad_norm, "flash_fwd_by_form": by_form,
+                    "flash_bwd_by_form": bwd_by_form}
     if not all(math.isfinite(x) for x in losses + [grad_norm]) or not losses[-1] < losses[0]:
         log(f"[{tag}] FAILED: the loss is not finite or did not fall")
         return None
     if launches != expect or min(v for k, v in launches.items() if expect[k]) == 0:
         log(f"[{tag}] FAILED: kernel launch counts do not match the micro-steps run")
         return None
-    if not forms_ok or plain_fwd_on_cuda:
-        log(f"[{tag}] FAILED: a flash forward launch was not form W's, or the plain forward ran "
-            f"on a CUDA tensor")
+    if not forms_ok or plain_on_cuda:
+        log(f"[{tag}] FAILED: a flash forward or backward launch was not form W's, or a plain "
+            f"version ran on a CUDA tensor ({plain_on_cuda[:2]})")
         return None
     if profile:
         prof = device_profile(lambda: engine.train_batch(batch))
@@ -1904,7 +1970,7 @@ def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel, alibi=False):
     """Bytes the kernel must move (each input read once, each output written
     once) and the flops of its products over the S(S+1)/2 causal pairs; with
     ``alibi`` also the fp32 slopes and 2 flops per pair (slope times
-    distance, added), which each of the three kernels computes."""
+    distance, added), which each kernel computes."""
     q_bytes, kv_bytes, row_bytes = B * S * H * hd * itemsize, B * S * kvH * hd * itemsize, B * H * S * 4
     pairs = S * (S + 1) // 2
     extra_bytes, extra_flops = (4 * H, 2 * B * H * pairs) if alibi else (0, 0)
@@ -1912,8 +1978,10 @@ def flash_bytes_flops(B, S, H, kvH, hd, itemsize, kernel, alibi=False):
         nbytes, flops = 2 * q_bytes + 2 * kv_bytes + row_bytes, 2 * 2 * B * H * pairs * hd
     elif kernel == "flash_bwd_dq":  # q, k, v, dO, lse, delta -> dq; q.k, dO.v, ds.k
         nbytes, flops = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 3 * 2 * B * H * pairs * hd
-    else:  # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
+    elif kernel == "flash_bwd_dkv":  # q, k, v, dO, lse, delta -> dk, dv; q.k, dO.v, p.dO, ds.q
         nbytes, flops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 4 * 2 * B * H * pairs * hd
+    else:  # form W's backward: q, k, v, dO, lse, delta -> dq, dk, dv; q.k, dO.v, p.dO, ds.q, ds.k
+        nbytes, flops = 3 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 5 * 2 * B * H * pairs * hd
     return nbytes + extra_bytes, flops + extra_flops
 
 
@@ -1941,14 +2009,14 @@ def time_fwd_forms(qs, k, v, sl, sdpa, bound_ms, flops, tag):
 
 
 def time_flash(dev, launches, max_err, timing, alibi=False):
-    """The three flash kernels, bf16, no keep-mask, beside their bounds, plain
-    versions and SDPA (forward alone, and its whole backward beside dq + dkv):
-    at the llama3-1b training shape, or with ``alibi`` their ALiBi form at
-    Bloom-560M's (SDPA with the bias and the causal mask folded into one float
-    mask built beforehand; the SDPA backend that ran is logged). The forward's
-    forms (form W, the mma.sync form) are timed in turns with SDPA
-    (``time_fwd_forms``); without ``alibi`` also at the Llama-3-8B heads' hd
-    128."""
+    """The flash kernels, bf16, no keep-mask, beside their bounds, plain
+    versions and SDPA: at the llama3-1b training shape, or with ``alibi``
+    their ALiBi form at Bloom-560M's (SDPA with the bias and the causal mask
+    folded into one float mask built beforehand; the SDPA backend that ran is
+    logged). The forward's forms (form W, the mma.sync form) are timed in
+    turns with SDPA's forward (``time_fwd_forms``), the backward's (form W,
+    the mma dq and dkv pair) with SDPA's whole backward (``time_bwd_forms``);
+    without ``alibi`` both also at the Llama-3-8B heads' hd 128."""
     shape = FLASH_ALIBI_SETS["bloom-560m"] if alibi else FLASH_SETS["llama3-1b"]
     B, S, H, kvH, hd = (shape[k] for k in ("B", "S", "H", "kvH", "hd"))
     q, k, v, do, _ = flash_inputs(dev, **shape)
@@ -1956,20 +2024,8 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
     qs = fa.prescale_q(q)
     natural = alibi_slopes(H, dev) if alibi else None
     sl = fa.alibi_log2(natural) if alibi else None
-    out, lse = fa.flash_fwd(qs, k, v, None, sl)
-    delta = fa.flash_delta(do, out)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(qs, k, v, None, sl),
-                      lambda: fa.flash_fwd_reference(qs, k, v, None, sl)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta, sl),
-                         lambda: fa.flash_bwd_dq_reference(qs, k, v, None, do, lse, delta, sl)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta, sl),
-                          lambda: fa.flash_bwd_dkv_reference(qs, k, v, None, do, lse, delta, sl)),
-    }
     # library yardstick (never called by the port): SDPA in its [B, H, S, hd]
     # layout, forward alone and its whole backward
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
     if alibi:  # natural-log slopes: SDPA's softmax is base e, its scale hd**-0.5
         pos = torch.arange(S, device=dev)
         rel = (pos[None, :] - pos[:, None]).float()
@@ -1978,93 +2034,155 @@ def time_flash(dev, launches, max_err, timing, alibi=False):
         del bias, rel
     else:
         sdpa_kw = {"is_causal": True, "enable_gqa": True}
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)  # noqa: E731
+    sdpa, sdpa_bwd, sdpa_in = sdpa_calls(q, k, v, do, sdpa_kw)
+    tag = f"B {B} S {S} H {H} kvH {kvH} hd {hd}{' ALiBi' if alibi else ''}"
     fwd_bytes, fwd_flops = flash_bytes_flops(B, S, H, kvH, hd, 2, "flash_fwd", alibi)
     fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, fwd_flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
-    forms, fwd_readings = time_fwd_forms(
-        qs, k, v, sl, sdpa, fwd_bound, fwd_flops,
-        f"B {B} S {S} H {H} kvH {kvH} hd {hd}{' ALiBi' if alibi else ''}")
+    forms, fwd_readings = time_fwd_forms(qs, k, v, sl, sdpa, fwd_bound, fwd_flops, tag)
     sdpa_fwd = forms.pop("sdpa")
-    sdpa_out = sdpa()
-    sdpa_bwd = time_fn(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
-                       iters=100)
     form, suffix = ("ALiBi", "_alibi") if alibi else ("", "")
     # the backend SDPA's dispatcher picks for these inputs
-    choice = int(torch._fused_sdp_choice(qt, kt, vt, **sdpa_kw))
+    choice = int(torch._fused_sdp_choice(*sdpa_in, **sdpa_kw))
     backend = {int(b.value): name for name, b in SDPBackend.__members__.items()}.get(choice,
                                                                                   str(choice))
     timing[f"sdpa_backend{suffix}"] = backend
     log(f"[time] SDPA{' ' + form if form else ''} runs its {backend} backend on these inputs")
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": None, "flash_bwd_dkv": None}
-    sources = {"flash_fwd": ("flash_attention_fwd.cu", 216),
-               "flash_bwd_dq": ("flash_attention_bwd_dq.cu", 364),
-               "flash_bwd_dkv": ("flash_attention_bwd_dkv.cu", 432)}
-    kernels = []
-    for name, (kernel_fn, plain_fn) in calls.items():
-        nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, name, alibi)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        ms = forms["wgmma"] if name == "flash_fwd" else time_fn(kernel_fn, iters=100)
-        t = {"ms": ms, "plain_ms": time_fn(plain_fn, iters=20, warmup=2),
-             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": library[name]}
-        key = name + suffix
-        timing[f"{key}[{B},{S},{H},{kvH},{hd}]"] = t
-        lib_text = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        log(f"[time] {key} B {B} S {S} H {H} kvH {kvH} hd {hd} bf16: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, SDPA{' ' + form if form else ''} forward {lib_text}, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.1f} GFLOP; {flops / t['ms'] / 1e9:.1f} TFLOP/s)")
-        src, line = sources[name]
-        entry = dict(name=key, route="cuda", source=f"deepspeed_tpu_torch/csrc/{src}",
-                     replaces=f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
-                     launches=launches[key], max_abs_err=max_err[key],
+    key = f"[{B},{S},{H},{kvH},{hd}]"
+    t = {"ms": forms["wgmma"], "plain_ms": time_fn(lambda: fa.flash_fwd_reference(qs, k, v, None, sl),
+                                                   iters=20, warmup=2),
+         "bound_ms": fwd_bound, "bound_by": bound_by(fwd_bytes, fwd_flops), "library_ms": sdpa_fwd}
+    timing[f"flash_fwd{suffix}{key}"] = t
+    log(f"[time] flash_fwd{suffix} {tag} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"SDPA forward {sdpa_fwd:.4f} ms, bound {fwd_bound:.4f} ms ({t['bound_by']}: "
+        f"{fwd_bytes / 1e6:.1f} MB, {fwd_flops / 1e9:.1f} GFLOP; {fwd_flops / t['ms'] / 1e9:.1f} TFLOP/s)")
+    fwd_entry = dict(name=f"flash_fwd{suffix}", route="cuda",
+                     source="deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+                     replaces="deepspeed_tpu/ops/pallas/flash_attention.py:216",
+                     launches=launches[f"flash_fwd{suffix}"], max_abs_err=max_err[f"flash_fwd{suffix}"],
                      shape=f"q [{B}, {S}, {H}, {hd}], kv heads {kvH}, bf16",
-                     **{k2: t[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                              "library_ms")})
-        if alibi:
-            entry["alibi"] = "_alibi_add, deepspeed_tpu/ops/pallas/flash_attention.py:158"
-        if name == "flash_fwd":
-            entry.update(form="wgmma", mma_ms=forms["mma"], turns_ms=fwd_readings,
-                         launches_by_form=launches["flash_fwd_by_form"])
-        kernels.append(entry)
-    if alibi:  # the form without ALiBi at the same shape: what the bias costs
+                     **{k2: t[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                     form="wgmma", mma_ms=forms["mma"], turns_ms=fwd_readings)
+    out, lse = fa.flash_fwd(qs, k, v, None, sl)
+    delta = fa.flash_delta(do, out)
+    bwd_entry = dict(name=f"flash_bwd{suffix}", launches=launches[f"flash_bwd{suffix}"],
+                     max_abs_err=max_err[f"flash_bwd{suffix}"],
+                     shape=f"q [{B}, {S}, {H}, {hd}], kv heads {kvH}, bf16",
+                     **time_bwd_forms(qs, k, v, do, out, lse, delta, sl, sdpa_bwd, tag, timing,
+                                      suffix))
+    for pair in FLASH_PAIR:  # the mma form's pieces alone, with their phase-2 errors
+        bwd_entry["mma"][pair]["max_abs_err"] = max_err[pair + suffix]
+    if alibi:
+        note = "_alibi_add, deepspeed_tpu/ops/pallas/flash_attention.py:158"
+        fwd_entry["alibi"] = bwd_entry["alibi"] = note
+        # the forms without ALiBi at the same shape: what the bias costs
         for name, fn in (("flash_fwd", lambda: fa.flash_fwd(qs, k, v, None)),
-                         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(qs, k, v, None, do, lse, delta)),
-                         ("flash_bwd_dkv",
-                          lambda: fa.flash_bwd_dkv(qs, k, v, None, do, lse, delta))):
-            with_bias = timing[f"{name}{suffix}[{B},{S},{H},{kvH},{hd}]"]["ms"]
+                         ("flash_bwd", lambda: fa.flash_bwd(qs, k, v, None, do, lse, delta))):
+            with_bias = timing[f"{name}{suffix}{key}"]["ms"]
             without = time_fn(fn, iters=100)
-            timing[f"{name}[{B},{S},{H},{kvH},{hd}]"] = {"ms": without}
+            timing[f"{name}{key}"] = {"ms": without}
             log(f"[time] {name} without ALiBi at the same shape: {without:.4f} ms; the ALiBi "
                 f"form {with_bias:.4f} ms ({100 * (with_bias / without - 1):+.1f} %)")
-    if not alibi:  # the forward at hd 128 (the Llama-3-8B heads): its forms beside SDPA
+    else:
+        fwd_entry["launches_by_form"] = launches["flash_fwd_by_form"]
+        bwd_entry["launches_by_form"] = launches["flash_bwd_by_form"]
+        # hd 128 (the Llama-3-8B heads): the forms of both beside SDPA
         s8 = FLASH_SETS["llama3-8b heads"]
-        q8, k8, v8 = (t.to(torch.bfloat16) for t in flash_inputs(dev, **s8)[:3])
-        qt8, kt8, vt8 = (t.transpose(1, 2).contiguous() for t in (q8, k8, v8))
+        q8, k8, v8, do8 = (t.to(torch.bfloat16) for t in flash_inputs(dev, **s8)[:4])
+        qs8 = fa.prescale_q(q8)
+        tag8 = f"B {s8['B']} S {s8['S']} H {s8['H']} kvH {s8['kvH']} hd {s8['hd']}"
+        causal = {"is_causal": True, "enable_gqa": True}
+        _, sdpa8_bwd, sdpa8_in = sdpa_calls(q8, k8, v8, do8, causal)
+        # the forward alone on detached inputs: no autograd record in its time
+        sdpa8 = functools.partial(F.scaled_dot_product_attention,
+                                  *(t.detach() for t in sdpa8_in), **causal)
         nbytes8, flops8 = flash_bytes_flops(s8["B"], s8["S"], s8["H"], s8["kvH"], s8["hd"], 2,
                                             "flash_fwd")
-        t_b, t_o = nbytes8 / HBM_BYTES_PER_S * 1e3, flops8 / PEAK_FLOPS[torch.bfloat16] * 1e3
-        tag8 = f"B {s8['B']} S {s8['S']} H {s8['H']} kvH {s8['kvH']} hd {s8['hd']}"
-        forms8, readings8 = time_fwd_forms(
-            fa.prescale_q(q8), k8, v8, None,
-            lambda: F.scaled_dot_product_attention(qt8, kt8, vt8, is_causal=True, enable_gqa=True),
-            max(t_b, t_o), flops8, tag8)
+        bound8 = max(nbytes8 / HBM_BYTES_PER_S, flops8 / PEAK_FLOPS[torch.bfloat16]) * 1e3
+        forms8, readings8 = time_fwd_forms(qs8, k8, v8, None, sdpa8, bound8, flops8, tag8)
         hd128 = {"shape": f"q [{s8['B']}, {s8['S']}, {s8['H']}, {s8['hd']}], kv heads {s8['kvH']}, "
                           f"bf16", "ms": forms8["wgmma"], "mma_ms": forms8["mma"],
-                 "library_ms": forms8.pop("sdpa"), "bound_ms": max(t_b, t_o),
-                 "bound_by": "bytes" if t_b >= t_o else "operations", "turns_ms": readings8}
-        timing["flash_fwd hd128"] = hd128
-        kernels[0]["hd128"] = hd128
-        del q8, k8, v8, qt8, kt8, vt8
-    bwd_sum = sum(timing[f"{n}{suffix}[{B},{S},{H},{kvH},{hd}]"]["ms"]
-                  for n in ("flash_bwd_dq", "flash_bwd_dkv"))
-    timing[f"sdpa_backward_vs_dq_plus_dkv{suffix}"] = {"sdpa_bwd_ms": sdpa_bwd,
-                                                       "dq_plus_dkv_ms": bwd_sum}
-    log(f"[time] backward{' ' + form if form else ''}: SDPA's whole backward {sdpa_bwd:.4f} ms "
-        f"beside dq + dkv {bwd_sum:.4f} ms (delta, plain fp32, excluded)")
-    del q, k, v, do, qs, out, lse, delta, qt, kt, vt, dot, sdpa_out
+                 "library_ms": forms8.pop("sdpa"), "bound_ms": bound8,
+                 "bound_by": bound_by(nbytes8, flops8), "turns_ms": readings8}
+        timing["flash_fwd hd128"] = fwd_entry["hd128"] = hd128
+        out8, lse8 = fa.flash_fwd(qs8, k8, v8)
+        bwd8 = time_bwd_forms(qs8, k8, v8, do8, out8, lse8, fa.flash_delta(do8, out8), None,
+                              sdpa8_bwd, tag8, timing, " hd128")
+        bwd8["shape"] = hd128["shape"]
+        timing["flash_bwd hd128"] = bwd_entry["hd128"] = bwd8
+        del q8, k8, v8, do8, qs8, out8, lse8, sdpa8, sdpa8_bwd, sdpa8_in
+    del q, k, v, do, qs, out, lse, delta, sdpa, sdpa_bwd, sdpa_in
     torch.cuda.empty_cache()
-    return kernels
+    return [fwd_entry, bwd_entry]
+
+
+def bound_by(nbytes, flops):
+    """Which of the card's two rates bounds work of ``nbytes`` and ``flops``."""
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[torch.bfloat16] else "operations"
+
+
+def sdpa_calls(q, k, v, do, sdpa_kw):
+    """The SDPA yardstick on q ``[B, S, H, hd]``, k, v ``[B, S, kvH, hd]``
+    (never called by the port): (its forward, its whole backward on ``do``
+    through one retained graph, its inputs q, k, v in its ``[B, heads, S,
+    hd]`` layout)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    fwd = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, **sdpa_kw)
+    out = fwd()
+    return fwd, lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), (qt, kt, vt)
+
+
+def time_bwd_forms(qs, k, v, do, out, lse, delta, sl, sdpa_bwd, tag, timing, suffix):
+    """The backward's bf16 forms (``FLASH_BWD_FORMS``: form W and the mma dq
+    and dkv pair) and SDPA's whole backward timed in turns (``time_turns``,
+    ``FWD_TURN_ROUNDS`` palindromes) on the same inputs; then form W with
+    ``flash_delta`` before it (SDPA's backward computes its own delta), the
+    pair's two kernels alone and the plain version. Logs every reading, form
+    W / SDPA reading by reading, TFLOP/s on form W's five products and the
+    share of their bound. Returns the kernel entry (without name, launches,
+    errors)."""
+    B, S, H, hd = qs.shape
+    kvH = k.shape[2]
+    alibi = sl is not None
+    fns = {name: functools.partial(fa._flash_bwd_form, qs, k, v, None, do, lse, delta, sl, name)
+           for name in FLASH_BWD_FORMS}
+    readings = {}
+    got = time_turns(dict(fns, sdpa=sdpa_bwd), iters=50, rounds=FWD_TURN_ROUNDS, readings=readings)
+    ratios = [w / s for w, s in zip(readings["wgmma"], readings["sdpa"])]
+    nbytes, flops = flash_bytes_flops(B, S, H, kvH, hd, 2, "flash_bwd", alibi)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.bfloat16]) * 1e3
+    with_delta = time_fn(lambda: fa.flash_bwd(qs, k, v, None, do, lse, fa.flash_delta(do, out), sl),
+                         iters=50)
+    delta_ms = time_fn(lambda: fa.flash_delta(do, out), iters=50)
+    pair = {}
+    for name in FLASH_PAIR:
+        nb, fl = flash_bytes_flops(B, S, H, kvH, hd, 2, name, alibi)
+        fn = getattr(fa, name)
+        pair[name] = {"ms": time_fn(lambda: fn(qs, k, v, None, do, lse, delta, sl), iters=50),
+                      "bound_ms": max(nb / HBM_BYTES_PER_S, fl / PEAK_FLOPS[torch.bfloat16]) * 1e3,
+                      "bound_by": bound_by(nb, fl)}
+    plain = time_fn(lambda: fa.flash_bwd_reference(qs, k, v, None, do, lse, delta, sl), iters=10,
+                    warmup=2)
+    log(f"[time] flash_bwd forms {tag}, in turns: " + ", ".join(
+        f"{name} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s on 5 products, {100 * bound / ms:.1f} % "
+        f"of their bound)" for name, ms in got.items()))
+    log(f"[time] flash_bwd {tag}: readings {readings}; form W / SDPA's backward reading by reading "
+        f"{[round(x, 4) for x in ratios]} (min {min(ratios):.4f}, max {max(ratios):.4f})")
+    log(f"[time] flash_bwd {tag}: form W {got['wgmma']:.4f} ms alone, {with_delta:.4f} ms with "
+        f"flash_delta ({delta_ms:.4f} ms alone, plain fp32); the mma pair's kernels alone: "
+        + ", ".join(f"{n} {p['ms']:.4f} ms (bound {p['bound_ms']:.4f})" for n, p in pair.items())
+        + f"; plain {plain:.4f} ms; bound {bound:.4f} ms ({bound_by(nbytes, flops)}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    entry = dict(route="cuda", source="deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                 replaces="deepspeed_tpu/ops/pallas/flash_attention.py:364, "
+                          "deepspeed_tpu/ops/pallas/flash_attention.py:432",
+                 ms=got["wgmma"], plain_ms=plain, bound_ms=bound, bound_by=bound_by(nbytes, flops),
+                 library_ms=got["sdpa"], form="wgmma", with_delta_ms=with_delta, delta_ms=delta_ms,
+                 mma_ms=got["mma"], mma=pair, turns_ms=readings)
+    timing[f"flash_bwd{suffix}[{B},{S},{H},{kvH},{hd}]"] = {
+        k2: entry[k2] for k2 in ("ms", "plain_ms", "bound_ms", "library_ms", "with_delta_ms",
+                                 "mma_ms")}
+    return entry
 
 
 def sparse_bytes_flops(B, H, kvH, S, D, itemsize, layout, block, kernel):
@@ -3105,7 +3223,8 @@ def main(argv=None) -> int:
     max_err = {"rms_norm": 0.0, "layer_norm": 0.0, "paged_attention": 0.0, "paged_attention_quant": 0.0,
                "paged_attention_alibi": 0.0, "grouped_matmul": 0.0, "permute_leaves": 0.0,
                "fused_hop": 0.0, "ag_hop": 0.0, "rs_hop": 0.0,
-               **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + SPARSE_KERNELS}}
+               **{k: 0.0 for k in FLASH_KERNELS + FLASH_ALIBI_KERNELS + FLASH_PAIR
+                  + FLASH_PAIR_ALIBI + SPARSE_KERNELS}}
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -3265,6 +3384,8 @@ def main(argv=None) -> int:
     trainings = ("train llama3-1b", "train bloom-560m", "train llama3-1b sparse", "train gpt2-125m")
     launches["flash_fwd_by_form"] = {f: sum(results[tag]["flash_fwd_by_form"][f] for tag in trainings)
                                      for f in fa.FWD_FORMS}
+    launches["flash_bwd_by_form"] = {f: sum(results[tag]["flash_bwd_by_form"][f] for tag in trainings)
+                                     for f in fa.BWD_FORMS}
     kernels = phase_time(dev, checks, launches, max_err, results)
     if any(kernel["launches"] == 0 for kernel in kernels):
         log("[time] FAILED: a kernel was launched no time on the main path")

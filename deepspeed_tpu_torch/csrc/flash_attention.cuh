@@ -1,12 +1,14 @@
 // Causal GQA flash attention for Hopper (sm_90a), written by hand: what the
-// three kernels share. Each kernel has its own source, so that the three
-// nvcc builds run in parallel:
-//   flash_attention_fwd.cu, flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu
+// kernels share. Each has its own source, so that the nvcc builds run in
+// parallel:
+//   flash_attention_fwd.cu, flash_attention_bwd.cu (form W of the backward),
+//   flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py
 //   ds_flash_fwd     <- _fwd_kernel     (pallas_call in _flash_fwd)
 //   ds_flash_bwd_dq  <- _bwd_dq_kernel  (first pallas_call in _flash_bwd)
 //   ds_flash_bwd_dkv <- _bwd_dkv_kernel (second pallas_call in _flash_bwd)
+//   ds_flash_bwd     <- both backward kernels, in one kernel (form W)
 // each with and without ALiBi (_alibi_add, called from _sub_score, which the
 // three Pallas kernels share). Same math: q arrives pre-scaled by
 // hd^-0.5 * log2(e) (in q's dtype, by the caller), the softmax runs in base
@@ -62,10 +64,10 @@
 // rows and keys past S are loaded as zeros and masked, nothing is padded in
 // device memory. fp32 inputs take the same code with the products done by
 // FMAs in the same fragment layout, P and dS passing through shared memory
-// (a check path, not a fast one). dq and dkv have no wgmma/TMA form yet; the
-// forward's bf16 inputs take its form W (flash_attention_fwd.cu: wgmma fed
-// by TMA, warp-specialised), and the forward described here stays as its
-// "mma" form, timed beside it.
+// (a check path, not a fast one). bf16 inputs take form W of each direction
+// (wgmma fed by TMA, warp-specialised): flash_attention_fwd.cu for the
+// forward, flash_attention_bwd.cu for dq, dk and dv in one kernel. The
+// kernels described here stay as the "mma" forms, timed beside them.
 
 #pragma once
 
@@ -188,6 +190,31 @@ __device__ __forceinline__ void add_alibi(float (&s)[N / 8][4], float slope,
     for (int c = 0; c < 4; ++c) {
       const float d = __fadd_rn(fb[c >> 1], static_cast<float>(kSign * (n * 8 + (c & 1))));
       s[n][c] = __fadd_rn(s[n][c], __fmul_rn(slope, d));
+    }
+}
+
+// 2^x by the SFU's approximation, results below 2^-126 flushed to 0 (a
+// softmax weight that small moves no output; exp2f's handling of them costs
+// several instructions a score, and at hd 64 the softmax's instructions are
+// as scarce as the tensor cores' time). Form W's forward and backward.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma accumulator (64 x N, this thread's C-fragment entries) rounded to
+// bf16 as the A operand of a product from registers: columns [16 j, 16 j +
+// 16), packed in pairs, are the A fragment of k-step j (P, dS in form W).
+template <int N>
+__device__ __forceinline__ void pack_frag(uint32_t (&p)[N / 16][4], const float (&sc)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 v2 = __floats2bfloat162_rn(sc[2 * j + (i >> 1)][2 * (i & 1)],
+                                                      sc[2 * j + (i >> 1)][2 * (i & 1) + 1]);
+      p[j][i] = *reinterpret_cast<const uint32_t*>(&v2);
     }
 }
 

@@ -220,12 +220,8 @@ struct Smem {  // byte offsets from the 1024-aligned base
   static_assert(kBytes <= 232448, "form W: shared memory");
 };
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
+using hopper::bar_arrive;
+using hopper::bar_sync;
 
 // S (64 x 128, this warpgroup's rows) = Q K^T over hd: k-step kk reads
 // columns [16 kk, 16 kk + 16), 32 bytes into the swizzled rows of box kk / 4
@@ -275,16 +271,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 8][4], const uint32_t (
   }
 }
 
-// 2^x by the SFU's approximation, results below 2^-126 flushed to 0 (a
-// softmax weight that small moves no output; exp2f's handling of them costs
-// several instructions a score, and at hd 64 the softmax's instructions are
-// as scarce as the tensor cores' time)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One key tile's scores, in place: the ALiBi bias (every tile, before the
 // mask), the mask where the tile needs one (keep_s: the tile's keep-mask
 // slice; key k0 + col is visible to row r iff it is kept and k0 + col <= r),
@@ -328,19 +314,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 8][4], float (&m)
     l[i] = alpha[i] * l[i] + sum;
     m[i] = m_cur;
   }
-}
-
-// P in V's dtype: accumulator columns [16 j, 16 j + 16), packed in bf16
-// pairs, are the A fragment of k-step j.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[kBN / 16][4], const float (&sc)[kBN / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < kBN / 16; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 v2 = __floats2bfloat162_rn(sc[2 * j + (i >> 1)][2 * (i & 1)],
-                                                      sc[2 * j + (i >> 1)][2 * (i & 1) + 1]);
-      p[j][i] = *reinterpret_cast<const uint32_t*>(&v2);
-    }
 }
 
 template <int HD, bool kAlibi, int kSched>
@@ -514,7 +487,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   hopper::fence_operand(sc);
   softmax_tile<kAlibi>(sc, m, l, alpha, keep_s, masked_all || kBN - 1 > r_lo || kBN > S, 0, row, t,
                        slope);
-  pack_p(p, sc);
+  pack_frag<kBN>(p, sc);
   int s_prev = 0, s = 1 % kStages, phase = kStages == 1 ? 1 : 0;
   for (int kt = 1; kt < my_tiles; ++kt) {
     const int k0 = kt * kBN;
@@ -550,7 +523,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
-    pack_p(p, sc);
+    pack_frag<kBN>(p, sc);
     s_prev = s;
     if (++s == kStages) {
       s = 0;
@@ -607,19 +580,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// q [B, S, H, hd] as (hd, H, S, B) and k, v [B, S, kvH, hd] as (hd, kvH, S,
-// B): one box is 64 columns of one head over `rows` rows of one batch entry
-bool encode_qkv(hopper::EncodeTiled fn, CUtensorMap* map, const void* base, int B, int S,
-                int heads, int HD, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD * 2;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(HD) * 2, row,
-                                 row * static_cast<cuuint64_t>(S)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return hopper::encode(fn, map, base, 4, dims, strides, box);
-}
-
 template <int HD, bool kAlibi, int kSched>
 int launch(const void* q, const void* k, const void* v, const void* keep, const void* slopes,
            void* out, void* lse, int B, int S, int H, int kvH, cudaStream_t stream) {
@@ -629,8 +589,9 @@ int launch(const void* q, const void* k, const void* v, const void* keep, const 
   const hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!encode_qkv(fn, &qm, q, B, S, H, HD, L::kBM) || !encode_qkv(fn, &km, k, B, S, kvH, HD, kBN) ||
-      !encode_qkv(fn, &vm, v, B, S, kvH, HD, kBN))
+  if (!hopper::encode_bshd(fn, &qm, q, B, S, H, HD, L::kBM) ||
+      !hopper::encode_bshd(fn, &km, k, B, S, kvH, HD, kBN) ||
+      !hopper::encode_bshd(fn, &vm, v, B, S, kvH, HD, kBN))
     return cudaErrorInvalidValue;
   static bool smem_set[hopper::kMaxDevices];
   const auto kernel = flash_fwd_wgmma_kernel<HD, kAlibi, kSched>;

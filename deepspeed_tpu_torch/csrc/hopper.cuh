@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels that are fed by TMA
-// and multiply with wgmma: grouped_gemm.cu (forms P and D) and
-// flash_attention_fwd.cu (form W). mbarrier waits, TMA tile loads, wgmma
-// shared-memory descriptors and instructions, the fence / commit / wait
-// wrappers, the tensor-map encoder fetched from the driver at run time and
-// the once-per-device shared-memory attribute.
+// and multiply with wgmma: grouped_gemm.cu (forms P and D),
+// flash_attention_fwd.cu and flash_attention_bwd.cu (form W). mbarrier waits,
+// TMA tile loads, wgmma shared-memory descriptors and instructions, the fence
+// / commit / wait wrappers, the bulk reduce-add, named barriers, the
+// tensor-map encoder fetched from the driver at run time and the
+// once-per-device shared-memory attribute.
 
 #pragma once
 
@@ -147,10 +148,11 @@ __device__ __forceinline__ void fence_operand(uint32_t (&d)[R][C]) {
 }
 
 // d[64 x 128] = A[64 x 16] * B[16 x 128] (kAcc: d +=), both from shared
-// memory, K-major (no transpose bit). The first k-step of a product takes
-// kAcc = false: d is then an output only, so the registers' old values (the
-// last tile's scores) are not an input the compiler has to order.
-template <bool kAcc>
+// memory; kTrans 0: both K-major, 1: both MN-major (the transpose bits). The
+// first k-step of a product takes kAcc = false: d is then an output only, so
+// the registers' old values (the last tile's scores) are not an input the
+// compiler has to order.
+template <bool kAcc, int kTrans = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t da, uint64_t db) {
   if constexpr (kAcc) {
     asm volatile(
@@ -160,7 +162,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t 
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
             "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
             "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -177,7 +179,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t 
             "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
             "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
             "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(kTrans));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -186,7 +188,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t 
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
         : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
             "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
             "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
@@ -203,7 +205,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t 
             "=f"(d[13][0]), "=f"(d[13][1]), "=f"(d[13][2]), "=f"(d[13][3]),
             "=f"(d[14][0]), "=f"(d[14][1]), "=f"(d[14][2]), "=f"(d[14][3]),
             "=f"(d[15][0]), "=f"(d[15][1]), "=f"(d[15][2]), "=f"(d[15][3])
-        : "l"(da), "l"(db), "r"(0));
+        : "l"(da), "l"(db), "r"(0), "n"(kTrans));
   }
 }
 
@@ -322,6 +324,86 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_t(float (&d)[16][4], const u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] = A[64 x 16] * B[16 x 64] (kAcc: d +=), both from shared memory;
+// kTrans 0: both K-major, 1: both MN-major (the transpose bits of A and B).
+// kAcc = false makes d an output only.
+template <bool kAcc, int kTrans>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  if constexpr (kAcc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %35;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(da), "l"(db), "r"(1), "n"(kTrans));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %35;\n}\n"
+        : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
+          "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
+          "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
+          "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3]),
+          "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]), "=f"(d[4][3]),
+          "=f"(d[5][0]), "=f"(d[5][1]), "=f"(d[5][2]), "=f"(d[5][3]),
+          "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]), "=f"(d[6][3]),
+          "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]), "=f"(d[7][3])
+        : "l"(da), "l"(db), "r"(0), "n"(kTrans));
+  }
+}
+
+// ---------------------------------------------------------------- bulk copies, barriers
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// dst[0 : bytes) += src[0 : bytes), fp32, from shared to global memory by the
+// bulk-copy engine (16-byte aligned, bytes a multiple of 16); completes in
+// this thread's bulk group.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are pending at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers: n threads (a multiple of 32) meet at barrier id (1-15; 0 is
+// __syncthreads'); bar_arrive counts without waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---------------------------------------------------------------- host
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime, so the
@@ -356,6 +438,19 @@ inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x [B, S, heads, hd] as (hd, heads, S, B): one box is 64 columns of one
+// head over `rows` rows of one batch entry (the flash kernels' q, k, v, dO)
+inline bool encode_bshd(EncodeTiled fn, CUtensorMap* map, const void* base, int B, int S,
+                        int heads, int HD, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(HD) * 2, row,
+                                 row * static_cast<cuuint64_t>(S)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return encode(fn, map, base, 4, dims, strides, box);
 }
 
 // Raises kernel's dynamic shared-memory limit to bytes once per device (done[dev]

@@ -1,34 +1,42 @@
 """Causal GQA flash attention (counterpart of
 ``deepspeed_tpu/ops/pallas/flash_attention.py``).
 
-Three kernels, each with its plain PyTorch version beside it:
+The kernels, each wrapper with its plain PyTorch version beside it:
 
 - ``flash_fwd(qs, k, v, keep, slopes) -> (out, lse)`` replaces ``_fwd_kernel``;
-- ``flash_bwd_dq(...) -> dq`` replaces ``_bwd_dq_kernel``;
-- ``flash_bwd_dkv(...) -> (dk, dv)`` replaces ``_bwd_dkv_kernel``;
+- ``flash_bwd(...) -> (dq, dk, dv)`` replaces ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel`` together (the backward the autograd function runs);
+- ``flash_bwd_dq(...) -> dq`` and ``flash_bwd_dkv(...) -> (dk, dv)``, the
+  pair of kernels that replaced them one for one, now the backward's "mma"
+  (bf16) and "simt" (fp32) forms;
 
 each with and without ALiBi (``_alibi_add``, which ``_sub_score`` of the
 three Pallas kernels calls).
 
 Each wrapper runs its plain version (``*_reference``) on a CPU tensor and on
 a CUDA tensor launches its hand-written kernel
-(``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd_dq.cu``,
-``flash_attention_bwd_dkv.cu``) or raises. The forward has three forms
-(``FWD_FORMS``), picked by ``flash_fwd_form`` from the dtype: form W
-(``"wgmma"``: wgmma fed by TMA, warp-specialised, every bf16 input) and
-``"simt"`` (fp32, a check path); the first bf16 form (``"mma"``, mma.sync) is
-reached only through ``_flash_fwd_form``, which runs one form by name (the
-card's tests and timing). Each forward launch counts in
-``flash_fwd.launches_by_form`` too. ``flash_causal_attention`` ties
+(``csrc/flash_attention_fwd.cu``, ``flash_attention_bwd.cu``,
+``flash_attention_bwd_dq.cu``, ``flash_attention_bwd_dkv.cu``) or raises. The
+forward and the backward have three forms each (``FWD_FORMS``,
+``BWD_FORMS``), picked by ``flash_fwd_form`` / ``flash_bwd_form`` from the
+dtype: form W (``"wgmma"``: wgmma fed by TMA, warp-specialised, every bf16
+input; the backward's computes dq, dk and dv in one kernel) and ``"simt"``
+(fp32, a check path); the first bf16 forms (``"mma"``, mma.sync; the
+backward's is the dq and dkv pair) are reached only through
+``_flash_fwd_form`` / ``_flash_bwd_form``, which run one form by name (the
+card's tests and timing). Each forward and backward launch counts in
+``flash_fwd.launches_by_form`` / ``flash_bwd.launches_by_form`` too.
+``flash_causal_attention`` ties
 them together in a ``torch.autograd.Function`` with the bookkeeping of the JAX package's
 ``_flash_core`` and ``_flash_vjp_bwd``:
 
 - q is pre-scaled **in q's dtype** by ``hd**-0.5 * log2(e)``; the softmax
   runs in base 2 on the pre-scaled scores and ``lse`` is base 2;
 - ``delta = rowsum(dO * O)`` is computed in fp32 here, outside the kernels;
-- the dq kernel multiplies its fp32 sum by ``hd**-0.5`` (the exact scale,
-  no ``log2e * ln2`` rounding), the dkv kernel multiplies dk by ``ln 2`` in
-  fp32, both before the cast to the input dtype;
+- the backward multiplies dq's fp32 sum by ``hd**-0.5`` (the exact scale,
+  no ``log2e * ln2`` rounding) and dk's by ``ln 2``, both before the cast to
+  the input dtype; form W adds dq's partial sums from its key tiles in an
+  order that varies from run to run (dk and dv stay deterministic);
 - dk and dv are summed over the G query heads of a kv head (``h // G``);
 - ALiBi: ``slopes`` (fp32 ``[H]``) arrive times ``log2(e)``, as the JAX
   wrapper folds them, and are constants (no gradient, as JAX's
@@ -66,6 +74,13 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 _SCHEDULING_KWARGS = ("block_q", "block_k", "k_splits")
 # forward form name -> the C entry's form code (csrc/flash_attention_fwd.cu, enum Form)
 FWD_FORMS = {"simt": 0, "mma": 1, "wgmma": 2}
+# backward forms, coded as the forward's: form W is csrc/flash_attention_bwd.cu (its
+# own C entry), the others the dq and dkv pair's entries
+BWD_FORMS = {"simt": 0, "mma": 1, "wgmma": 2}
+# form W's fp32 dq accumulator has S rounded up to this many rows a (batch,
+# head) (csrc/flash_attention_bwd.cu kPadRows)
+_BWD_PAD_ROWS = 128
+# the dtype each form takes (forward and backward alike)
 _FORM_DTYPE = {"simt": torch.float32, "mma": torch.bfloat16, "wgmma": torch.bfloat16}
 
 
@@ -145,6 +160,14 @@ def flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta,
     return (dk * _LN2).to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_reference(qs, k, v, keep, do, lse, delta,
+                        slopes=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward: ``(dq, dk, dv)`` from the dq and dkv
+    plain versions."""
+    dq = flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes)
+    return (dq, *flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta, slopes))
+
+
 # ------------------------------------------------------------ kernel wrappers
 def _check_slopes(qs, slopes) -> None:
     """ALiBi slopes, where given, are fp32 ``[H]``, contiguous, on q's device
@@ -215,6 +238,16 @@ def _count(wrapper, slopes) -> None:
 def flash_fwd_form(dtype: torch.dtype, hd: int) -> str:
     """The forward form ``flash_fwd`` runs: form W (``"wgmma"``) for bf16,
     ``"simt"`` for fp32."""
+    return _form_of(dtype, hd)
+
+
+def flash_bwd_form(dtype: torch.dtype, hd: int) -> str:
+    """The backward form ``flash_bwd`` runs: form W (``"wgmma"``, one kernel
+    for dq, dk and dv) for bf16, ``"simt"`` (the dq and dkv pair) for fp32."""
+    return _form_of(dtype, hd)
+
+
+def _form_of(dtype: torch.dtype, hd: int) -> str:
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {hd} unsupported (one of {SUPPORTED_HEAD_DIMS})")
     if dtype == torch.bfloat16:
@@ -247,27 +280,29 @@ def flash_fwd(qs, k, v, keep=None, slopes=None) -> Tuple[torch.Tensor, torch.Ten
     return _fwd_launch(qs, k, v, keep, slopes, flash_fwd_form(qs.dtype, qs.shape[3]))
 
 
+def _check_form(qs, form: str, forms, slopes, k, v, keep, *more) -> None:
+    """A form is named and is a kernel (so a CUDA tensor); the inputs pass
+    ``_check``; q's dtype is the form's."""
+    if form not in forms:
+        raise ValueError(f"flash attention: unknown form {form!r}; forms are {sorted(forms)}")
+    if qs.device.type != "cuda":
+        raise ValueError(f"flash attention: form {form!r} is a kernel; {qs.device} tensor given")
+    _check_slopes(qs, slopes)
+    _check(qs, k, v, keep, *more)
+    if qs.dtype != _FORM_DTYPE[form]:
+        raise ValueError(f"flash attention: form {form!r} does not take {qs.dtype}")
+
+
 def _flash_fwd_form(qs, k, v, keep, slopes, form: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_fwd`` through the named form, whatever ``flash_fwd_form`` would
     choose; raises ``ValueError`` for a form or dtype that does not fit and
     for a CPU tensor (a form is a kernel)."""
-    if form not in FWD_FORMS:
-        raise ValueError(f"flash attention: unknown form {form!r}; forms are {sorted(FWD_FORMS)}")
-    if qs.device.type != "cuda":
-        raise ValueError(f"flash attention: form {form!r} is a kernel; {qs.device} tensor given")
-    _check_slopes(qs, slopes)
-    _check(qs, k, v, keep)
-    if qs.dtype != _FORM_DTYPE[form]:
-        raise ValueError(f"flash attention: form {form!r} does not take {qs.dtype}")
+    _check_form(qs, form, FWD_FORMS, slopes, k, v, keep)
     return _fwd_launch(qs, k, v, keep, slopes, form)
 
 
-def flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
-    """dq (already times ``hd**-0.5``, in q's dtype)."""
-    _check_slopes(qs, slopes)
-    if qs.device.type == "cpu":
-        return flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes)
-    _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
+def _dq_launch(qs, k, v, keep, do, lse, delta, slopes) -> torch.Tensor:
+    """Allocate dq and launch the dq kernel of the pair (uncounted)."""
     B, S, H, hd = qs.shape
     dq = torch.empty_like(qs)
     op_builder.launch("flash_attention_bwd_dq", "ds_flash_bwd_dq", qs.data_ptr(), k.data_ptr(),
@@ -275,16 +310,11 @@ def flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
                       delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], hd,
                       ctypes.c_float(hd ** -0.5), op_builder.DTYPE_CODES[qs.dtype],
                       torch.cuda.current_stream(qs.device).cuda_stream)
-    _count(flash_bwd_dq, slopes)
     return dq
 
 
-def flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk times ln 2, dv), summed over each kv head's G query heads."""
-    _check_slopes(qs, slopes)
-    if qs.device.type == "cpu":
-        return flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta, slopes)
-    _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
+def _dkv_launch(qs, k, v, keep, do, lse, delta, slopes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate dk, dv and launch the dkv kernel of the pair (uncounted)."""
     B, S, H, hd = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     op_builder.launch("flash_attention_bwd_dkv", "ds_flash_bwd_dkv", qs.data_ptr(),
@@ -292,14 +322,80 @@ def flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes=None) -> Tuple[torch.Te
                       lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H,
                       k.shape[2], hd, ctypes.c_float(_LN2), op_builder.DTYPE_CODES[qs.dtype],
                       torch.cuda.current_stream(qs.device).cuda_stream)
+    return dk, dv
+
+
+def flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes=None) -> torch.Tensor:
+    """dq (already times ``hd**-0.5``, in q's dtype) by the pair's dq kernel."""
+    _check_slopes(qs, slopes)
+    if qs.device.type == "cpu":
+        return flash_bwd_dq_reference(qs, k, v, keep, do, lse, delta, slopes)
+    _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
+    dq = _dq_launch(qs, k, v, keep, do, lse, delta, slopes)
+    _count(flash_bwd_dq, slopes)
+    return dq
+
+
+def flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk times ln 2, dv), summed over each kv head's G query heads, by the
+    pair's dkv kernel."""
+    _check_slopes(qs, slopes)
+    if qs.device.type == "cpu":
+        return flash_bwd_dkv_reference(qs, k, v, keep, do, lse, delta, slopes)
+    _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
+    dk, dv = _dkv_launch(qs, k, v, keep, do, lse, delta, slopes)
     _count(flash_bwd_dkv, slopes)
     return dk, dv
 
 
-for _wrapper in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+def _bwd_launch(qs, k, v, keep, do, lse, delta, slopes, form: str):
+    """Allocate dq, dk, dv and run backward ``form``: form W's one C entry
+    (its fp32 dq accumulator zeroed there, then the kernel and dq's
+    conversion), or the pair's two kernels; count the launch."""
+    if form == "wgmma":
+        B, S, H, hd = qs.shape
+        dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+        rows = -(-S // _BWD_PAD_ROWS) * _BWD_PAD_ROWS
+        dq_acc = torch.empty((B, H, rows, hd), dtype=torch.float32, device=qs.device)
+        op_builder.launch("flash_attention_bwd", "ds_flash_bwd", qs.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), _ptr(keep), _ptr(slopes), do.data_ptr(), lse.data_ptr(),
+                          delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), B, S, H, k.shape[2], hd, ctypes.c_float(hd ** -0.5),
+                          ctypes.c_float(_LN2), op_builder.DTYPE_CODES[qs.dtype],
+                          torch.cuda.current_stream(qs.device).cuda_stream)
+    else:
+        dq = _dq_launch(qs, k, v, keep, do, lse, delta, slopes)
+        dk, dv = _dkv_launch(qs, k, v, keep, do, lse, delta, slopes)
+    _count(flash_bwd, slopes)
+    flash_bwd.launches_by_form[form] += 1
+    return dq, dk, dv
+
+
+def flash_bwd(qs, k, v, keep, do, lse, delta,
+              slopes=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on pre-scaled ``qs``: ``(dq times hd**-0.5, dk times ln 2,
+    dv)``, dk and dv summed over each kv head's G query heads."""
+    _check_slopes(qs, slopes)
+    if qs.device.type == "cpu":
+        return flash_bwd_reference(qs, k, v, keep, do, lse, delta, slopes)
+    _check(qs, k, v, keep, ("do", do), ("lse", lse), ("delta", delta))
+    return _bwd_launch(qs, k, v, keep, do, lse, delta, slopes, flash_bwd_form(qs.dtype, qs.shape[3]))
+
+
+def _flash_bwd_form(qs, k, v, keep, do, lse, delta, slopes, form: str):
+    """``flash_bwd`` through the named form, whatever ``flash_bwd_form`` would
+    choose; raises ``ValueError`` for a form or dtype that does not fit and
+    for a CPU tensor (a form is a kernel)."""
+    _check_form(qs, form, BWD_FORMS, slopes, k, v, keep, ("do", do), ("lse", lse),
+                ("delta", delta))
+    return _bwd_launch(qs, k, v, keep, do, lse, delta, slopes, form)
+
+
+for _wrapper in (flash_fwd, flash_bwd, flash_bwd_dq, flash_bwd_dkv):
     _wrapper.launches = 0
     _wrapper.alibi_launches = 0
 flash_fwd.launches_by_form = dict.fromkeys(FWD_FORMS, 0)
+flash_bwd.launches_by_form = dict.fromkeys(BWD_FORMS, 0)
 
 
 # ------------------------------------------------------------ autograd
@@ -349,8 +445,7 @@ class _FlashAttention(torch.autograd.Function):
         qs, k, v, keep, slopes, out, lse = ctx.saved_tensors
         do = g.to(qs.dtype).contiguous()
         delta = flash_delta(do, out)
-        dq = flash_bwd_dq(qs, k, v, keep, do, lse, delta, slopes)
-        dk, dv = flash_bwd_dkv(qs, k, v, keep, do, lse, delta, slopes)
+        dq, dk, dv = flash_bwd(qs, k, v, keep, do, lse, delta, slopes)
         return dq, dk, dv, None, None
 
 
@@ -371,7 +466,8 @@ def flash_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "FWD_FORMS", "NEG_INF", "alibi_log2", "flash_bwd_dkv",
-    "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference", "flash_causal_attention",
-    "flash_delta", "flash_fwd", "flash_fwd_form", "flash_fwd_reference", "prescale_q",
+    "BWD_FORMS", "FWD_FORMS", "NEG_INF", "alibi_log2", "flash_bwd", "flash_bwd_dkv",
+    "flash_bwd_dkv_reference", "flash_bwd_dq", "flash_bwd_dq_reference", "flash_bwd_form",
+    "flash_bwd_reference", "flash_causal_attention", "flash_delta", "flash_fwd",
+    "flash_fwd_form", "flash_fwd_reference", "prescale_q",
 ]

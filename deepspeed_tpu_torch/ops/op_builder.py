@@ -78,6 +78,11 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # form (ops/flash_attention.py FWD_FORMS), stream
         "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
+    "flash_attention_bwd": {
+        # q, k, v, keep, slopes, dout, lse, delta, dq_acc (fp32 scratch), dq, dk, dv, B, S, H,
+        # kvH, hd, scale, dk_scale, dtype, stream
+        "ds_flash_bwd": [_P] * 12 + [_I] * 5 + [_F, _F, _I, _P],
+    },
     "flash_attention_bwd_dq": {
         # q, k, v, keep, slopes, dout, lse, delta, dq, B, S, H, kvH, hd, scale, dtype, stream
         "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -186,6 +186,37 @@ def check_flash_fwd(q, k, v, keep=None, slopes=None, form=None):
     return rel, float((out.float() - want.float()).abs().max()), lse_err, dead_exact, out
 
 
+def check_flash_bwd(q, k, v, do, keep=None, slopes=None, form=None):
+    """The backward alone (the form ``flash_bwd`` picks, or ``form`` through
+    ``_flash_bwd_form``) against its plain version on the same inputs, lse
+    and delta (the forward's, by the form ``flash_fwd`` picks). Returns
+    (``{name: (row rel L2, max abs)}`` for dq, dk, dv; whether every query
+    row with no visible key has dq 0 and every key the keep-mask drops dk and
+    dv 0; the outputs ``(dq, dk, dv)``)."""
+    qs = fa.prescale_q(q)
+    out, lse = fa.flash_fwd(qs, k, v, keep, slopes)
+    delta = fa.flash_delta(do, out)
+    if form is None:
+        got = fa.flash_bwd(qs, k, v, keep, do, lse, delta, slopes)
+    else:
+        got = fa._flash_bwd_form(qs, k, v, keep, do, lse, delta, slopes, form)
+    if q.is_cuda:
+        torch.cuda.synchronize(q.device)
+    want = fa.flash_bwd_reference(qs, k, v, keep, do, lse, delta, slopes)
+    readings = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        ok = bool(torch.isfinite(g).all()) and g.dtype == q.dtype and g.shape == w.shape
+        readings[name] = (row_rel_l2(g, w) if ok else float("inf"),
+                          float((g.float() - w.float()).abs().max()))
+    B, S = q.shape[:2]
+    kept = torch.ones(B, S, dtype=torch.int32, device=q.device) if keep is None else keep
+    dead, dropped = kept.cumsum(1) == 0, kept == 0
+    dq, dk, dv = got
+    dead_exact = (bool((dq[dead] == 0).all()) and bool((dk[dropped] == 0).all())
+                  and bool((dv[dropped] == 0).all()))
+    return readings, dead_exact, got
+
+
 def check_sparse_kernels(q, k, v, do, layout, block, causal):
     """The three block-sparse kernels against their plain versions on the same
     inputs (q, dO ``[B, S, H, D]`` and k, v ``[B, S, Hkv, D]`` as

@@ -337,10 +337,19 @@ def _turn_order_fault(q0, n_wg, hand_over=_hand_over_ok):
     ``bar.sync`` meets exactly one arrival from another warpgroup, no barrier
     ever holds two arrivals with no warpgroup waiting, and every warpgroup
     ends; else what went wrong."""
-    progs = [_turn_program(q0, wg, n_wg, hand_over) for wg in range(n_wg)]
+    return _barrier_fault([_turn_program(q0, wg, n_wg, hand_over) for wg in range(n_wg)])
+
+
+def _barrier_fault(progs, owners=None):
+    """``_turn_order_fault`` over given programs, one a warpgroup: warpgroup
+    w waits on barrier 1 + w, or on the barriers ``owners`` ({barrier: the
+    one warpgroup that waits there}) gives it."""
+    n_wg = len(progs)
+    owners = {**{1 + w: w for w in range(n_wg)}, **(owners or {})}
     # state: each warpgroup's next operation and whether it waits at a
     # bar.sync; each barrier's arrivals not yet met by a sync
-    start = (tuple(0 for _ in progs), tuple(False for _ in progs), tuple(0 for _ in range(n_wg + 1)))
+    start = (tuple(0 for _ in progs), tuple(False for _ in progs),
+             tuple(0 for _ in range(max(owners) + 1)))
     seen, todo = {start}, [start]
     while todo:
         pcs, waiting, pending = todo.pop()
@@ -350,19 +359,30 @@ def _turn_order_fault(q0, n_wg, hand_over=_hand_over_ok):
                 continue
             kind, bar = prog[pcs[wg]]
             pc, wt, pd = list(pcs), list(waiting), list(pending)
+            if kind == "meet":  # every warpgroup syncs at the barrier
+                others = [w for w in range(n_wg) if w != wg]
+                if all(wt[w] and progs[w][pcs[w]] == ("meet", bar) for w in others):
+                    for w in others:
+                        wt[w], pc[w] = False, pc[w] + 1
+                    pc[wg] += 1
+                else:
+                    wt[wg] = True
+                moves.append((tuple(pc), tuple(wt), tuple(pd)))
+                continue
             if kind == "sync":
-                if bar != 1 + wg:
+                if owners.get(bar) != wg:
                     return f"warpgroup {wg} waits on barrier {bar}, not its own"
                 if pd[bar]:  # the arrival came first: the barrier completes
                     pd[bar], pc[wg] = 0, pc[wg] + 1
                 else:
                     wt[wg] = True
             else:
-                if bar == 1 + wg:
+                if owners.get(bar) == wg:
                     return f"warpgroup {wg} arrives at its own barrier {bar}"
                 pc[wg] += 1
-                owner = bar - 1
-                if owner < n_wg and wt[owner]:  # the owner waits: the barrier completes
+                owner = owners.get(bar)
+                if owner is not None and wt[owner] and progs[owner][pcs[owner]] == ("sync", bar):
+                    # the owner waits there: the barrier completes
                     wt[owner], pc[owner] = False, pc[owner] + 1
                 else:
                     pd[bar] += 1
@@ -429,3 +449,188 @@ def test_cpu_flash_fwd_takes_the_plain_version(monkeypatch):
     for form in list(fa.FWD_FORMS) + ["wmma"]:
         with pytest.raises(ValueError):
             fa._flash_fwd_form(qs, kt, vt, keep, None, form)
+
+
+# ---- the backward's forms (form W: csrc/flash_attention_bwd.cu; "mma" and
+# "simt": the dq and dkv pair)
+def test_flash_bwd_form_choices():
+    """The backward's form follows the dtype alone: form W ("wgmma", one
+    kernel for dq, dk and dv) for bf16 at both head dims, the SIMT pair for
+    fp32; the mma pair is never picked. Other head dims and dtypes raise."""
+    for hd in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.flash_bwd_form(torch.bfloat16, hd) == "wgmma"
+        assert fa.flash_bwd_form(torch.float32, hd) == "simt"
+    with pytest.raises(ValueError):
+        fa.flash_bwd_form(torch.bfloat16, 96)
+    with pytest.raises(TypeError):
+        fa.flash_bwd_form(torch.float16, 64)
+    assert set(fa.BWD_FORMS) == {"simt", "mma", "wgmma"}
+    assert set(fa.flash_bwd.launches_by_form) == set(fa.BWD_FORMS)
+
+
+def test_flash_bwd_launches_by_form_sum_to_launches(monkeypatch):
+    """Each backward launch counts once in its form and once in ``launches``
+    or ``alibi_launches``; form W calls its one C entry (with an fp32 dq
+    accumulator of S rounded up to 128 rows), the pair's forms the dq then
+    the dkv entry, whose own counters stay as they were. The launcher is
+    stubbed: there is no card here."""
+    calls = []
+    monkeypatch.setattr(fa.op_builder, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(fa.flash_bwd, "launches", 3)
+    monkeypatch.setattr(fa.flash_bwd, "alibi_launches", 2)
+    monkeypatch.setattr(fa.flash_bwd, "launches_by_form", {"simt": 4, "mma": 0, "wgmma": 1})
+    pair_before = [(w.launches, w.alibi_launches) for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    B, S, H, kvH, hd = 1, 130, 4, 2, 64
+    qs = do = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    k = v = torch.zeros(B, S, kvH, hd, dtype=torch.bfloat16)
+    lse = delta = torch.zeros(B, H, S)
+    slopes = torch.ones(H)
+    order = [("wgmma", None), ("wgmma", slopes), ("mma", None), ("simt", slopes), ("wgmma", None)]
+    for form, sl in order:
+        n = len(calls)
+        dq, dk, dv = fa._bwd_launch(qs, k, v, None, do, lse, delta, sl, form)
+        assert (dq.shape, dk.shape, dv.shape) == (qs.shape, k.shape, v.shape)
+        assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+        entries = [(a[0], a[1]) for a in calls[n:]]
+        if form == "wgmma":
+            assert entries == [("flash_attention_bwd", "ds_flash_bwd")]
+            args = calls[-1][2:]
+            assert args[12:17] == (B, S, H, kvH, hd)
+            assert (args[17].value, args[19]) == (pytest.approx(hd ** -0.5),
+                                                  fa.op_builder.DTYPE_CODES[torch.bfloat16])
+            assert args[4] == (None if sl is None else sl.data_ptr())
+        else:
+            assert entries == [("flash_attention_bwd_dq", "ds_flash_bwd_dq"),
+                               ("flash_attention_bwd_dkv", "ds_flash_bwd_dkv")]
+    assert fa.flash_bwd.launches_by_form == {"simt": 5, "mma": 1, "wgmma": 4}
+    assert (fa.flash_bwd.launches, fa.flash_bwd.alibi_launches) == (6, 4)
+    assert sum(fa.flash_bwd.launches_by_form.values()) == (fa.flash_bwd.launches
+                                                           + fa.flash_bwd.alibi_launches)
+    assert [(w.launches, w.alibi_launches)
+            for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv)] == pair_before
+
+
+def test_flash_bwd_accumulator_rows_cover_every_tile(monkeypatch):
+    """Form W's fp32 dq accumulator holds S rounded up to 128 rows a (batch,
+    head): every query tile (128 rows at hd 64, 64 at hd 128) lies inside it,
+    so the rows past S of the last tile land in its padding."""
+    shapes = []
+    real_empty = torch.empty
+
+    def empty(*size, **kw):
+        t = real_empty(*size, **kw)
+        if kw.get("dtype") == torch.float32 and t.dim() == 4:
+            shapes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(fa.op_builder, "launch", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(fa.torch, "empty", empty)
+    for S in (1, 64, 127, 128, 129, 1000, 2048):
+        for hd, tile in ((64, 128), (128, 64)):
+            qs = torch.zeros(2, S, 4, hd, dtype=torch.bfloat16)
+            k = torch.zeros(2, S, 1, hd, dtype=torch.bfloat16)
+            lse = torch.zeros(2, 4, S)
+            fa._bwd_launch(qs, k, k, None, qs, lse, lse, None, "wgmma")
+            rows = shapes[-1][2]
+            assert shapes[-1] == (2, 4, rows, hd) and rows % 128 == 0
+            assert rows >= -(-S // tile) * tile and rows - S < 128
+
+
+def test_cpu_flash_bwd_takes_the_plain_versions(monkeypatch):
+    """A CPU tensor takes ``flash_bwd_reference`` (the dq and dkv plain
+    versions together) with no launch of any form, every counter unchanged,
+    with and without ALiBi; a form by name refuses a CPU tensor, as it
+    refuses an unknown form; the autograd backward calls ``flash_bwd`` once."""
+    q, k, v, do, mask = _inputs(40, 2, 16, True)
+    qs, kt, vt, dot = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    keep = torch.from_numpy(mask)
+    slopes = fa.alibi_log2(torch.from_numpy(_slopes(True)))
+    counters = lambda: [(w.launches, w.alibi_launches) for w in (  # noqa: E731
+        fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)] + [
+        dict(fa.flash_bwd.launches_by_form)]
+    before = counters()
+    for sl in (None, slopes):
+        out, lse = fa.flash_fwd(qs, kt, vt, keep, sl)
+        delta = fa.flash_delta(dot, out)
+        got = fa.flash_bwd(qs, kt, vt, keep, dot, lse, delta, sl)
+        want = (fa.flash_bwd_dq_reference(qs, kt, vt, keep, dot, lse, delta, sl),
+                *fa.flash_bwd_dkv_reference(qs, kt, vt, keep, dot, lse, delta, sl))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert [g.dtype for g in got] == [torch.bfloat16] * 3
+        for form in list(fa.BWD_FORMS) + ["wmma"]:
+            with pytest.raises(ValueError):
+                fa._flash_bwd_form(qs, kt, vt, keep, dot, lse, delta, sl, form)
+    assert counters() == before
+    calls = []
+    real_bwd = fa.flash_bwd
+    monkeypatch.setattr(fa, "flash_bwd", lambda *a: calls.append(1) or real_bwd(*a))
+    qg = torch.from_numpy(q).requires_grad_(True)
+    fa.flash_causal_attention(qg, torch.from_numpy(k), torch.from_numpy(v),
+                              mask=keep).backward(torch.from_numpy(do))
+    assert calls == [1] and qg.grad is not None
+
+
+# ---- form W of the backward (csrc/flash_attention_bwd.cu): its named
+# barriers, modelled as the forward's. Two consumer warpgroups with the same
+# steps; each step two turns (products 1-2, then 3-5), each a take_turn, the
+# products, a hand_over; warpgroup 1 gives warpgroup 0 the first turn and
+# none after its own last; at hd 64 both then meet on barrier 5 to sum their
+# dQ partials.
+_BWD_SOURCE = Path(fa.__file__).resolve().parent.parent / "csrc" / "flash_attention_bwd.cu"
+_BWD_TURN_SOURCE = """
+  if (wg == 1) hopper::bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+  const auto take_turn = [&]() { hopper::bar_sync(1 + wg, 256); };
+  const auto hand_over = [&](bool last) {
+    if (!(wg == 1 && last)) hopper::bar_arrive(2 - wg, 256);
+  };
+    take_turn();
+    hand_over(false);
+    take_turn();
+    hand_over(step + 1 == n_steps);
+  constexpr bool kPairSum = HD == 64;  // the two dQ partials summed before they leave
+    if constexpr (kPairSum) {
+      hopper::bar_sync(5, 256);
+"""
+
+
+def _bwd_turn_program(wg, n_steps, skip_last=True, pair_sum=True):
+    """Warpgroup ``wg``'s barrier operations in form W's backward (``pair_sum``:
+    hd 64's meeting on barrier 5)."""
+    ops = [("arrive", 1)] if wg == 1 else []
+    for step in range(n_steps):
+        for last in (False, step + 1 == n_steps):
+            ops.append(("sync", 1 + wg))
+            if not (skip_last and wg == 1 and last):
+                ops.append(("arrive", 2 - wg))
+        if pair_sum:
+            ops.append(("meet", 5))
+    return ops
+
+
+def test_bwd_turn_order_source_is_the_modelled_one():
+    """The model below mirrors these lines of the backward's form W; a change
+    to them must change the model too (and pass it)."""
+    text = " ".join(_BWD_SOURCE.read_text().split())
+    for line in _BWD_TURN_SOURCE.strip().splitlines():
+        assert " ".join(line.split()) in text, line
+
+
+@pytest.mark.parametrize("pair_sum", [True, False], ids=["hd64", "hd128"])
+@pytest.mark.parametrize("n_steps", [1, 2, 3, 16, 64])
+def test_bwd_turn_order_never_hangs(n_steps, pair_sum):
+    """Every barrier of the backward's turns balances in every interleaving,
+    for a block of 1 step (the last key tile of one head) to 64 (key tile 0
+    of S 2048 with G 4 at hd 64), with and without hd 64's meeting."""
+    progs = [_bwd_turn_program(wg, n_steps, pair_sum=pair_sum) for wg in (0, 1)]
+    assert _barrier_fault(progs) is None
+
+
+def test_bwd_turn_order_model_finds_a_wrong_order():
+    """The model is not vacuous: warpgroup 1 handing a turn after its last
+    leaves an arrival unmet."""
+    fault = _barrier_fault([_bwd_turn_program(wg, 3, skip_last=False) for wg in (0, 1)])
+    assert fault is not None and "unmet" in fault

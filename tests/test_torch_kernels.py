@@ -36,7 +36,14 @@ wgmma fed by TMA) is held alone by the same limits (``check_flash_fwd``) at S
 = 1, 65, 127, 129 and 1000 (ragged keep-mask 1000, 613, 0), G = 1, 4 and 8,
 hd 64 and 128, with and without ALiBi; left-padded rows with no visible key
 are exactly 0 with the lse sentinel; the mma.sync form stays within the same
-limits of form W. The quantiser kernels (int8 nearest and stochastic,
+limits of form W. The backward's form W (bf16: one kernel for dq, dk and dv,
+wgmma fed by TMA) is held alone (``check_flash_bwd``) by the same row rule
+and 2e-2 on every flash case, with and without ALiBi: dq of rows with no
+visible key and dk, dv of dropped keys exactly 0, dk and dv bit-equal between
+two runs (dq's partial sums land in any order, so two runs' dq are held to
+2e-2 of each other); the wrapper runs it for bf16, one launch counted by
+form; it refuses fp32, hd 96 and a tensor off a 16-byte boundary; the mma
+pair, by name, meets the same limits. The quantiser kernels (int8 nearest and stochastic,
 dequantisation) must equal their plain versions bit for bit:
 both divide and round in IEEE fp32 and hash the same counters. The
 quantised paged kernel (int8 and e4m3 pools) is held to the limits of the
@@ -112,6 +119,7 @@ from deepspeed_tpu_torch.utils.checks import (
     LSE_ALIBI_REL,
     bits_differ,
     block_wire,
+    check_flash_bwd,
     check_flash_fwd,
     check_flash_kernels,
     check_grouped_matmul,
@@ -575,6 +583,67 @@ def test_flash_fwd_mma_form_matches_form_w(cuda_device, alibi):
     w = _fwd_w_check(cuda_device, shape, alibi)
     mma = _fwd_w_check(cuda_device, shape, alibi, form="mma")
     assert row_rel_l2(mma, w) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_form_w_matches_plain(cuda_device, case, alibi):
+    """The wrapper runs the backward's form W for bf16 (one launch, counted by
+    form): dq, dk and dv within 2e-2 of the plain version, the empty rows and
+    dropped keys exact; a second run gives bit-equal dk and dv, and dq within
+    2e-2 (its partial sums land in any order)."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    q, k, v, do, keep = flash_inputs(cuda_device, **FLASH_CASES[case], seed=3)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    slopes = fa.alibi_log2(alibi_slopes(q.shape[2], cuda_device)) if alibi else None
+    before = dict(fa.flash_bwd.launches_by_form)
+    readings, dead_exact, got = check_flash_bwd(q, k, v, do, keep, slopes)
+    assert fa.flash_bwd.launches_by_form == dict(before, wgmma=before["wgmma"] + 1)
+    for name, (rel, _) in readings.items():
+        assert rel <= 2e-2, (name, rel)
+    assert dead_exact
+    again = check_flash_bwd(q, k, v, do, keep, slopes)[2]
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    assert row_rel_l2(again[0], got[0]) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True], ids=["no_alibi", "alibi"])
+def test_flash_bwd_mma_form_matches_plain(cuda_device, alibi):
+    """The mma pair, reached by name, meets the same limits as form W."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    q, k, v, do, keep = flash_inputs(cuda_device, **FLASH_CASES["keep_keyless_row"], seed=3)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    slopes = fa.alibi_log2(alibi_slopes(q.shape[2], cuda_device)) if alibi else None
+    readings, dead_exact, _ = check_flash_bwd(q, k, v, do, keep, slopes, "mma")
+    assert all(rel <= 2e-2 for rel, _ in readings.values()), readings
+    assert dead_exact
+
+
+@pytest.mark.cuda
+def test_flash_bwd_form_w_rejects_bad_inputs(cuda_device):
+    """Form W takes bf16 only, hd 64 or 128, every tensor on a 16-byte
+    boundary: fp32 by name, hd 96 and a misaligned dO raise, launching nothing."""
+    q, k, v, do, _ = flash_inputs(cuda_device, B=1, S=64, H=4, kvH=2, hd=64, seed=3)
+    qs, k, v, do = (t.bfloat16() for t in (fa.prescale_q(q), k, v, do))
+    out, lse = fa.flash_fwd(qs, k, v)
+    delta = fa.flash_delta(do, out)
+    before = dict(fa.flash_bwd.launches_by_form)
+    with pytest.raises(ValueError):
+        fa._flash_bwd_form(qs.float(), k.float(), v.float(), None, do.float(), lse, delta, None,
+                           "wgmma")
+    with pytest.raises(ValueError):
+        fa.flash_bwd(*(torch.zeros(*t.shape[:3], 96, dtype=torch.bfloat16, device=cuda_device)
+                       for t in (qs, k, v)), None,
+                     torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=cuda_device), lse, delta)
+    shifted = torch.empty(do.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    shifted = shifted.view(do.shape).copy_(do)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_bwd(qs, k, v, None, shifted, lse, delta)
+    assert fa.flash_bwd.launches_by_form == before
 
 
 def test_cpu_flash_alibi_takes_the_plain_versions():
