@@ -11,7 +11,11 @@ Phases, any failure exits non-zero:
           paged attention at the serving path's shapes, the latter also over
           int8 and e4m3 pools, and its ALiBi form over bf16, fp32, int8 and
           e4m3 pools at Bloom-7B1's decode and prefill shapes (32 kv heads:
-          G = 1) and on the GQA batches (G = 4); the int8 quantiser (nearest and stochastic) and
+          G = 1) and on the GQA batches (G = 4); then each of the paged
+          kernel's forms by name (``check_paged_forms``: "split", W and S in
+          bf16, "split" and S in fp32) on every one of those batches, every
+          pool, ALiBi on and off, forms "split" and W bit-equal over two
+          runs; the int8 quantiser (nearest and stochastic) and
           dequantiser at a Llama-3-8B w_up layer slice, at 2048 * 37 + 123 and
           with an all-zero block, which must equal their plain versions bit for
           bit; the three flash-attention kernels (forward, dq, dkv) at the
@@ -52,9 +56,14 @@ Phases, any failure exits non-zero:
           tokens each, decode chains of 8, greedy, after one warm-up call. The
           kernels' launch counters are zeroed just before and read just after; every launch of the run
           must come from the path (65 RMSNorm and 32 paged-attention launches
-          per forward). One prefill step's last-token logits are then held
-          against the same step run through the plain versions, and a decode
-          chain is profiled (device time by kernel, the device's busy share);
+          per forward), every decode forward's paged launches through form
+          "split" and every prefill forward's through form W
+          (``launches_by_form``, each forward's shape recorded), the plain
+          paged attention never called (in every serving phase). One prefill
+          step's last-token logits are then held against the same step run
+          through the plain versions, and a decode chain and a prefill are
+          profiled (device time by kernel, the device's busy share, the paged
+          kernel's share by form; Bloom and Mixtral alike);
    quant  the same weights, prompts and 4 GiB pool budget through two
           quantised engines, each built and run with the counters zeroed just
           before and read just after: (a) an int8 KV pool with int8 weight-only
@@ -164,7 +173,12 @@ Phases, any failure exits non-zero:
           row a rank and op, the trajectory falling and within 1e-4 of the
           same steps unfused;
 7. time   each kernel with CUDA events beside its bound, its plain version and
-          one PyTorch library call computing the same function (for the
+          one PyTorch library call computing the same function (the paged
+          kernel's forms "split", W and S and SDPA on K/V gathered beforehand
+          in ``PAGED_TURN_ROUNDS`` palindromes, a cold L2 before each call,
+          at rows 2, 2q and 2a's decode and prefill shapes, then the
+          crossover sweep of forms "split" and W, ``PAGED_SWEEP``, and of form
+          "split"'s split count, ``PAGED_SPLIT_SWEEP``; for the
           LayerNorm kernel ``F.layer_norm`` at [8, 4096] and [8064, 4096]
           bf16; none for the
           quantisers; for the sparse kernels SDPA with the layout expanded to
@@ -486,6 +500,8 @@ def zero_counts() -> None:
     for fn, attr in counted().values():
         setattr(fn, attr, 0)
     gmm_mod.grouped_matmul.launches_by_form.update(dict.fromkeys(gmm_mod.FORMS, 0))
+    for wrapper in (paged_attention, paged_attention_quant):
+        wrapper.launches_by_form.update(dict.fromkeys(pa_mod.PAGED_FORMS, 0))
     fa.flash_fwd.launches_by_form.update(dict.fromkeys(fa.FWD_FORMS, 0))
     fa.flash_bwd.launches_by_form.update(dict.fromkeys(fa.BWD_FORMS, 0))
     model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
@@ -901,6 +917,65 @@ def check_paged_alibi(dev, rng, checks, max_err):
     return failures
 
 
+# the paged kernel's forms checked by name in phase 2 (bf16 q; fp32 q for the
+# forms that take it), and timed in turns with SDPA in phase 7
+PAGED_FORMS = ("split", "wgmma", "simt")
+PAGED_TURN_ROUNDS = 2
+
+
+def paged_pools(batch, kv, dtype=torch.bfloat16, alibi=False):
+    """``batch`` with q in ``dtype``, its pools in q's dtype (``kv`` None) or as
+    int8 / e4m3 codes with scales, and Bloom's slopes with ``alibi``."""
+    b = dict(batch if kv is None else quantised_batch(batch, kv), q=batch["q"].to(dtype))
+    if kv is None:
+        b.update(pool_k_l=batch["pool_k_l"].to(dtype), pool_v_l=batch["pool_v_l"].to(dtype))
+    if alibi:
+        b["alibi_slopes"] = alibi_slopes(batch["q"].shape[2], batch["q"].device)
+    return b
+
+
+def check_paged_forms(dev, checks, max_err):
+    """Phase 2's paged-attention checks by form (``pa_mod._paged_attention_form``):
+    every batch of ``checks`` (Llama's and Bloom's decode and prefill, the
+    garbage tails), every pool (q's dtype, int8, e4m3), ALiBi on and off,
+    forms "split", W and S in bf16 and "split" and S in fp32, each against
+    the plain version by PAGED_TOL; forms "split" and W run twice on the
+    same inputs must give the same bits."""
+    failures = []
+    for label, (batch, _) in checks.items():
+        for kv in (None, *KV_CODE_DTYPES):
+            for alibi in (False, True):
+                texts, bad = [], []
+                for dtype in (torch.bfloat16, torch.float32):
+                    b = paged_pools(batch, kv, dtype, alibi)
+                    want = paged_attention_reference(**b)
+                    for form in PAGED_FORMS:
+                        if not pa_mod.form_takes(form, dtype, b["q"].shape[3], b["block_size"]):
+                            continue
+                        got = pa_mod._paged_attention_form(form=form, **b)
+                        again = (pa_mod._paged_attention_form(form=form, **b)
+                                 if form != "simt" else got)
+                        torch.cuda.synchronize()
+                        ok, mabs, mrel = compare_paged(got, want, dtype)
+                        same = torch.equal(got, again)
+                        key = ("paged_attention_alibi" if alibi else
+                               "paged_attention" if kv is None else "paged_attention_quant")
+                        if dtype == torch.bfloat16:
+                            max_err[key] = max(max_err[key], mabs)
+                        texts.append(f"{form} {str(dtype)[6:]} {mabs:.2e}/{mrel:.2e}"
+                                     + ("" if same else " NOT bit-equal"))
+                        if not (ok and same):
+                            bad.append(f"{form} {dtype}")
+                        del got, again
+                G = batch["q"].shape[2] // batch["pool_k_l"].shape[1]
+                log(f"[check] paged_attention by form{' alibi' if alibi else ''} {label} (G = {G}) "
+                    f"{kv or 'q-dtype'} pool (max_abs/max per-query rel L2; tol PAGED_TOL, forms "
+                    f"split and W bit-equal over two runs): " + ", ".join(texts)
+                    + (f" FAIL {bad}" if bad else " ok"))
+                failures += [f"paged_attention form {f} {label} {kv} alibi={alibi}" for f in bad]
+    return failures
+
+
 # ------------------------------------------------------------------ phases
 def phase_checks(dev, max_err):
     """Phase 2: each kernel against its plain version. Returns (failures,
@@ -961,6 +1036,7 @@ def phase_checks(dev, max_err):
                 if not ok:
                     failures.append(f"paged_attention_quant {label} {kv} {dtype}")
     failures += check_paged_alibi(dev, rng, checks, max_err)
+    failures += check_paged_forms(dev, checks, max_err)
     flash_sets = [(label, shape, False) for label, shape in FLASH_SETS.items()]
     flash_sets += [(label, shape, True) for label, shape in FLASH_ALIBI_SETS.items()]
     for label, shape, alibi in flash_sets:
@@ -1282,6 +1358,86 @@ def profile_chain(tag, engine, prompts):
     return log_profile(tag, f"decode chain ({len(uids)} rows x 8 steps)", *prof), prof[3]
 
 
+@contextlib.contextmanager
+def paged_path(shapes, plain_calls):
+    """While active, each forward's tokens shape (N, C) is appended to
+    ``shapes`` (``inference.paged._forward_hidden``) and each call of the
+    plain paged attention to ``plain_calls``."""
+    real_forward, real_plain = paged_mod._forward_hidden, pa_mod.paged_attention_reference
+
+    def record(params_, cfg_, pool, tokens, *a, **k):
+        shapes.append(tuple(tokens.shape))
+        return real_forward(params_, cfg_, pool, tokens, *a, **k)
+
+    def spy(*a, **k):
+        plain_calls.append(1)
+        return real_plain(*a, **k)
+
+    with mock.patch.object(paged_mod, "_forward_hidden", record), \
+            mock.patch.object(pa_mod, "paged_attention_reference", spy):
+        yield
+
+
+def paged_forms_of_run(tag, cfg, shapes, plain_calls):
+    """The paged kernel's launches by form that a run of forwards ``shapes``
+    must show, beside what it showed: every decode forward (C == 1) through
+    form "split", every prefill forward (C > 1) through form W, L launches a
+    forward, the plain version never called. Returns (ok, record)."""
+    G, hd, bs = cfg.num_heads // cfg.kv_heads, cfg.dims_per_head, SERVE_CONFIG["kv_block_size"]
+    want = dict.fromkeys(pa_mod.PAGED_FORMS, 0)
+    off = []
+    for N, C in shapes:
+        form = pa_mod.paged_form(cfg.dtype, hd, C, G, bs)
+        want[form] += cfg.num_layers
+        if form != ("split" if C == 1 else "wgmma"):
+            off.append((N, C, form))
+    got = {f: paged_attention.launches_by_form[f] + paged_attention_quant.launches_by_form[f]
+           for f in pa_mod.PAGED_FORMS}
+    decode = sum(1 for _, C in shapes if C == 1)
+    ok = got == want and not off and not plain_calls and 0 < decode < len(shapes)
+    log(f"[{tag}] paged attention by form: {got} (expected {want}: {decode} decode forwards "
+        f"through form split, {len(shapes) - decode} prefill forwards through form W); plain "
+        f"paged attention called {len(plain_calls)} times{'' if not off else f'; OFF FORM {off}'}"
+        f"{'' if ok else ' FAILED'}")
+    return ok, {"paged_launches_by_form": got, "decode_forwards": decode,
+                "prefill_forwards": len(shapes) - decode}
+
+
+def paged_ms(rows):
+    """Device ms of the paged kernel's forms in a profile's rows, by kernel."""
+    names = {"split": "paged_split_kernel", "wgmma": "paged_wgmma_kernel",
+             "simt": "paged_attention_kernel"}
+    return {form: sum(ms for ms, _, name in rows if f"{kernel}<" in name or f"{kernel}(" in name)
+            for form, kernel in names.items()}
+
+
+def profile_paged(tag, engine, prompts, results):
+    """A decode chain (``profile_chain``) and the prefill of ``prompts`` under
+    the profiler: the paged kernel's device ms by form and its share of each
+    one's device time, into ``results``. Returns None when the profiler saw
+    no device time, else the decode chain's rows."""
+    prof = profile_chain(tag, engine, prompts)
+    if prof is None:
+        return None
+    results["profile_decode_chain"], rows = prof
+    uids = list(range(len(prompts)))
+    pre = device_profile(lambda: engine.put(uids, prompts))
+    for u in uids:
+        engine.flush(u)
+    if pre[1] <= 0:
+        log(f"[{tag}] FAILED: the profiler saw no device time in the prefill")
+        return None
+    results["profile_prefill"] = log_profile(tag, f"prefill of {len(prompts)} prompts", *pre)
+    for what, rec, rws in (("decode chain", results["profile_decode_chain"], rows),
+                           ("prefill", results["profile_prefill"], pre[3])):
+        by_form = paged_ms(rws)
+        busy = rec["device_busy_ms"]
+        rec["paged_ms_by_form"], rec["paged_share_of_device_time"] = by_form, sum(by_form.values()) / busy
+        log(f"[{tag}] paged attention in the {what}: {sum(by_form.values()):.3f} ms of {busy:.2f} ms "
+            f"device time ({100 * sum(by_form.values()) / busy:.1f} %), by form {by_form}")
+    return rows
+
+
 def woq_reads(engine):
     """(quantised leaves, dequantiser launches a forward) of an engine's
     weights: a stacked leaf is read once per layer. Ints only, so the
@@ -1305,9 +1461,12 @@ def phase_serve(dev, cfg, params, results):
     engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
     engine.chain_steps = engine.model_forwards = 0
     torch.cuda.reset_peak_memory_stats()
+    shapes, plain_calls = [], []
     zero_counts()
-    outs, wall, spans, peak_gb = timed_generate(engine, prompts)
+    with paged_path(shapes, plain_calls):
+        outs, wall, spans, peak_gb = timed_generate(engine, prompts)
     launches = launch_counts()
+    forms_ok, forms = paged_forms_of_run("serve", cfg, shapes, plain_calls)
     forwards = engine.model_forwards
     expect = dict({k: 0 for k in launches}, rms_norm=(2 * cfg.num_layers + 1) * forwards,
                   paged_attention=cfg.num_layers * forwards)
@@ -1316,12 +1475,13 @@ def phase_serve(dev, cfg, params, results):
     if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
         log(f"[serve] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
         return None
-    if launches != expect or min(launches["rms_norm"], launches["paged_attention"]) == 0:
+    if (launches != expect or min(launches["rms_norm"], launches["paged_attention"]) == 0
+            or not forms_ok):
         log("[serve] FAILED: kernel launch counts do not match the forwards run")
         return None
     prefill_tokens = sum(plens)
     results["serve"] = {
-        "prompt_lens": plens, "forwards": forwards, "launches": launches, "wall_s": wall,
+        "prompt_lens": plens, "forwards": forwards, "launches": launches, "wall_s": wall, **forms,
         "prefill_s": spans["prefill"], "decode_s": spans["decode"],
         "prefill_tok_s": prefill_tokens / spans["prefill"],
         "decode_tok_s": engine.tokens_decoded / spans["decode"],
@@ -1338,11 +1498,12 @@ def phase_serve(dev, cfg, params, results):
     if logits is None:
         return None
 
-    # where a decode chain's time goes (after the counted run)
-    prof = profile_chain("profile", engine, prompts)
-    if prof is None:
+    # where a decode chain's and a prefill's time goes (after the counted run)
+    prof = {}
+    if profile_paged("profile", engine, prompts, prof) is None:
         return None
-    results["profile_decode_chain"] = prof[0]
+    results["profile_decode_chain"], results["profile_prefill"] = (
+        prof["profile_decode_chain"], prof["profile_prefill"])
     return launches, outs, logits
 
 
@@ -1366,8 +1527,11 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
         engine = InferenceEngineV2(cfg, params, dict(SERVE_CONFIG, **over), device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        outs, wall, spans, peak_gb = timed_generate(engine, prompts)
+        shapes, plain_calls = [], []
+        with paged_path(shapes, plain_calls):
+            outs, wall, spans, peak_gb = timed_generate(engine, prompts)
         launches = launch_counts()
+        forms_ok, forms = paged_forms_of_run(tag, cfg, shapes, plain_calls)
         forwards = engine.model_forwards
         woq = engine.config.quant.enabled
         n_leaves, per_forward = woq_reads(engine)
@@ -1381,7 +1545,7 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
         if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
             log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
             return None
-        if launches != expect or launches["paged_attention_quant"] == 0 or (
+        if launches != expect or launches["paged_attention_quant"] == 0 or not forms_ok or (
                 woq and min(launches["quantize_int8"], launches["dequantize_int8"]) == 0):
             log(f"[{tag}] FAILED: kernel launch counts do not match the forwards run")
             return None
@@ -1399,7 +1563,7 @@ def phase_quant_serve(dev, cfg, params, bf16_outs, bf16_logits, results):
             "kv_blocks": engine.num_kv_blocks,
             "kv_pool_gib": sum(t.numel() * t.element_size() for t in (
                 engine.pool.k, engine.pool.v, engine.pool.k_scale, engine.pool.v_scale)) / 2 ** 30,
-            "greedy_agreement_with_bf16": agree, "same_first_token_as_bf16": same_first,
+            "greedy_agreement_with_bf16": agree, "same_first_token_as_bf16": same_first, **forms,
         }
         log(f"[{tag}] generate {wall:.2f} s: prefill {prefill_tokens / spans['prefill']:.1f} tok/s, "
             f"decode {engine.tokens_decoded / spans['decode']:.1f} tok/s, peak memory "
@@ -1566,17 +1730,12 @@ def phase_bloom_serve(dev, results):
         engine.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS and allocator first calls
         engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
         engine.chain_steps = engine.model_forwards = 0
-        plain_calls = []
-        real_plain = pa_mod.paged_attention_reference
-
-        def spy(*a, **k):
-            plain_calls.append(1)
-            return real_plain(*a, **k)
-
+        shapes, plain_calls = [], []
         zero_counts()
-        with mock.patch.object(pa_mod, "paged_attention_reference", spy):
+        with paged_path(shapes, plain_calls):
             outs, wall, spans, peak_gb = timed_generate(engine, prompts)
         launches = launch_counts()
+        forms_ok, forms = paged_forms_of_run(tag, cfg, shapes, plain_calls)
         forwards = engine.model_forwards
         n_leaves, per_forward = woq_reads(engine)
         expect = dict({k: 0 for k in launches}, paged_attention_alibi=cfg.num_layers * forwards,
@@ -1590,7 +1749,8 @@ def phase_bloom_serve(dev, results):
         if any(len(o) != 64 or o.min() < 0 or o.max() >= cfg.vocab_size for o in outs):
             log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
             return None
-        if launches != expect or init_launches != expect_init or plain_calls or forwards == 0:
+        if (launches != expect or init_launches != expect_init or plain_calls or forwards == 0
+                or not forms_ok):
             log(f"[{tag}] FAILED: kernel launch counts do not match the forwards run")
             return None
         prefill_tokens = sum(plens)
@@ -1603,6 +1763,7 @@ def phase_bloom_serve(dev, results):
             "tokens_decoded": engine.tokens_decoded, "peak_mem_gb": peak_gb,
             "weight_bytes": weight_bytes, "kv_bytes_per_token": engine.kv_bytes_per_token,
             "kv_blocks": engine.num_kv_blocks, "first_tokens": [o[:8].tolist() for o in outs[:2]],
+            **forms,
         }
         log(f"[{tag}] generate {wall:.2f} s: prefill {prefill_tokens} tokens in "
             f"{spans['prefill']:.3f} s ({r['prefill_tok_s']:.1f} tok/s), decode "
@@ -1621,12 +1782,9 @@ def phase_bloom_serve(dev, results):
             r["greedy_agreement_with_bf16"], r["drift_vs_bf16_rel_l2"] = agree, drift
             log(f"[{tag}] against the bf16 engine: greedy tokens equal {100 * agree:.1f} %, "
                 f"prefill-step logits rel L2 {drift:.3e} (random weights: printed, not held)")
-        prof = profile_chain(tag, engine, prompts)
-        if prof is None:
+        if profile_paged(tag, engine, prompts, r) is None:
             return None
-        r["profile_decode_chain"], rows = prof
-        paged_ms = sum(ms for ms, _, name in rows if "paged_attention_kernel" in name)
-        r["paged_attention_share_of_device_time"] = paged_ms / prof[0]["device_busy_ms"]
+        r["paged_attention_share_of_device_time"] = r["profile_decode_chain"]["paged_share_of_device_time"]
         if not over and not bloom_layer_norm_ab(tag, dev, cfg, engine, prompts, logits, r):
             return None
         by_path[tag] = {k: launches[k] + init_launches[k] for k in launches}
@@ -1690,29 +1848,24 @@ def phase_mixtral_serve(dev, results):
     plens, prompts = mixtral_prompts(cfg)
     L, E = cfg.num_layers, cfg.num_experts
     by_path = {}
-    real_forward = paged_mod._forward_hidden
     for tag, over in MIXTRAL_ENGINES.items():
         torch.cuda.reset_peak_memory_stats()
         engine = InferenceEngineV2(cfg, params, dict(SERVE_CONFIG, **over), device=dev)
         engine.generate(prompts, max_new_tokens=2)  # warm-up: cuBLAS and allocator first calls
         engine.dispatch_count = engine.host_sync_count = engine.tokens_decoded = 0
         engine.chain_steps = engine.model_forwards = 0
-        shapes, plain_calls = [], []
+        shapes, plain_calls, paged_plain = [], [], []
         real_plain = gmm_mod.grouped_matmul_plain
-
-        def record(params_, cfg_, pool, tokens, *a, **k):
-            shapes.append(tuple(tokens.shape))
-            return real_forward(params_, cfg_, pool, tokens, *a, **k)
 
         def spy(*a, **k):
             plain_calls.append(1)
             return real_plain(*a, **k)
 
         zero_counts()
-        with mock.patch.object(paged_mod, "_forward_hidden", record), \
-                mock.patch.object(gmm_mod, "grouped_matmul_plain", spy):
+        with paged_path(shapes, paged_plain), mock.patch.object(gmm_mod, "grouped_matmul_plain", spy):
             outs, wall, spans, peak_gb = timed_generate(engine, prompts)
         launches = launch_counts()
+        forms_ok, forms = paged_forms_of_run(tag, cfg, shapes, paged_plain)
         by_form = dict(gmm_mod.grouped_matmul.launches_by_form)
         calls = (model_mod._moe.dense_calls, model_mod._moe.ragged_calls)
         forwards = engine.model_forwards
@@ -1736,7 +1889,8 @@ def phase_mixtral_serve(dev, results):
             log(f"[{tag}] FAILED: outputs {[(len(o), int(o.min()), int(o.max())) for o in outs]}")
             return None
         if (launches != expect or calls != expect_calls or plain_calls or len(shapes) != forwards
-                or ragged_prefill == 0 or ragged_decode == 0 or by_form != expect_forms):
+                or ragged_prefill == 0 or ragged_decode == 0 or by_form != expect_forms
+                or not forms_ok):
             log(f"[{tag}] FAILED: kernel launch or regime counts do not match the forwards run")
             return None
         prefill_tokens = sum(plens)
@@ -1745,7 +1899,7 @@ def phase_mixtral_serve(dev, results):
             "prompt_lens": plens, "forwards": forwards, "ragged_forwards": len(ragged),
             "ragged_prefill_forwards": ragged_prefill, "ragged_decode_forwards": ragged_decode,
             "forward_shapes": shapes, "launches": launches, "moe_calls_dense_ragged": list(calls),
-            "grouped_matmul_launches_by_form": by_form,
+            "grouped_matmul_launches_by_form": by_form, **forms,
             "wall_s": wall, "prefill_s": spans["prefill"], "decode_s": spans["decode"],
             "prefill_tok_s": prefill_tokens / spans["prefill"],
             "decode_tok_s": engine.tokens_decoded / spans["decode"],
@@ -1761,16 +1915,16 @@ def phase_mixtral_serve(dev, results):
         if check_prefill_logits(tag, dev, cfg, engine.params, prompts, r,
                                 kv_quant=engine.config.kv_quant) is None:
             return None
-        prof = profile_chain(tag, engine, prompts)
-        if prof is None:
+        rows = profile_paged(tag, engine, prompts, r)
+        if rows is None:
             return None
-        r["profile_decode_chain"], rows = prof
         gmm_ms = {kernel: sum(ms for ms, _, name in rows if f"{kernel}(" in name)
                   for kernel in ("gmm_wgmma_kernel", "gmm_stream_kernel", "gmm_bf16_kernel")}
         r["grouped_matmul_ms_by_kernel"] = gmm_ms
-        r["grouped_matmul_share_of_device_time"] = sum(gmm_ms.values()) / prof[0]["device_busy_ms"]
+        busy = r["profile_decode_chain"]["device_busy_ms"]
+        r["grouped_matmul_share_of_device_time"] = sum(gmm_ms.values()) / busy
         log(f"[{tag}] grouped GEMM: {sum(gmm_ms.values()):.2f} ms of "
-            f"{prof[0]['device_busy_ms']:.2f} ms device time "
+            f"{busy:.2f} ms device time "
             f"({100 * r['grouped_matmul_share_of_device_time']:.1f} %) in the decode chain, by "
             f"kernel {gmm_ms}")
         by_path[tag] = launches
@@ -2278,42 +2432,121 @@ def time_sparse(dev, launches, max_err, timing):
     return kernels
 
 
-def time_paged_alibi(dev, checks, launches, max_err, timing, flush):
-    """The ALiBi form at Bloom-7B1's shapes (G = 1): a bf16 pool at decode and
-    prefill, int8 and e4m3 pools at decode, beside the bound, the plain
-    version and SDPA on K/V gathered (and dequantised) beforehand with the
-    bias as a float mask. Returns the kernel line's entry (bf16 decode)."""
-    slopes = alibi_slopes(32, dev)
-    for label, key, kv in (("decode", "bloom decode C=1, lens 1-1000", None),
-                           ("prefill", "bloom prefill C=512, ragged, pad row", None),
-                           ("decode", "bloom decode C=1, lens 1-1000", "int8"),
-                           ("decode", "bloom decode C=1, lens 1-1000", "fp8")):
+# (kernel line entry, label, phase-2 batch, pool, ALiBi) of phase 7's paged timings
+PAGED_TIME_SETS = (
+    ("paged_attention", "decode", "decode C=1, lens 1-1000", None, False),
+    ("paged_attention", "prefill", "prefill C=512, ragged, pad row", None, False),
+    ("paged_attention_quant", "int8 decode", "decode C=1, lens 1-1000", "int8", False),
+    ("paged_attention_quant", "int8 prefill", "prefill C=512, ragged, pad row", "int8", False),
+    ("paged_attention_quant", "fp8 decode", "decode C=1, lens 1-1000", "fp8", False),
+    ("paged_attention_quant", "fp8 prefill", "prefill C=512, ragged, pad row", "fp8", False),
+    ("paged_attention_alibi", "decode", "bloom decode C=1, lens 1-1000", None, True),
+    ("paged_attention_alibi", "prefill", "bloom prefill C=512, ragged, pad row", None, True),
+    ("paged_attention_alibi", "int8 decode", "bloom decode C=1, lens 1-1000", "int8", True),
+    ("paged_attention_alibi", "fp8 decode", "bloom decode C=1, lens 1-1000", "fp8", True),
+)
+# the crossover sweep of forms "split" and W: (kv heads, C) at 32 query heads,
+# 8 rows of lengths 1-1000 (at least C)
+PAGED_SWEEP = ((8, 2), (8, 4), (8, 8), (32, 2), (32, 4), (32, 8), (32, 16))
+# form "split"'s split counts swept at the decode batches (the plan's SPLIT_PLAN)
+PAGED_SPLIT_SWEEP = (2, 4, 8, 16)
+PAGED_ENTRIES = {
+    "paged_attention": ("deepspeed_tpu/ops/pallas/paged_attention.py:59",
+                        "Llama-3-8B decode q [8, 1, 32, 128], 8 kv heads, lens 1-1000, bf16 pool"),
+    "paged_attention_quant": ("deepspeed_tpu/ops/pallas/paged_attention.py:94",
+                              "decode q [8, 1, 32, 128] bf16, int8 pool, lens 1-1000"),
+    "paged_attention_alibi": ("deepspeed_tpu/ops/pallas/paged_attention.py:124",
+                              "Bloom-7B1 decode q [8, 1, 32, 128], 32 kv heads, bf16 pool, lens 1-1000"),
+}
+
+
+def time_paged(dev, checks, launches, max_err, timing, flush):
+    """The paged kernel at the decode and prefill shapes of rows 2, 2q and 2a:
+    its forms ("split", W, S) by name and SDPA on K/V gathered (and
+    dequantised) beforehand, the ALiBi bias as a float mask, timed in turns
+    (``PAGED_TURN_ROUNDS`` palindromes, a cold L2 before each call), beside
+    the bound and the plain version; then the crossover sweep of forms
+    "split" and W (``PAGED_SWEEP``) and form "split"'s split counts at the
+    decode batches (``PAGED_SPLIT_SWEEP``, beside the plan's). Returns the
+    kernel line's three entries: the form the wrapper picks at decode, with
+    the prefill's beside it."""
+    for name, label, key, kv, alibi in PAGED_TIME_SETS:
         batch, lens = checks[key]
-        ab = dict(batch if kv is None else quantised_batch(batch, kv), alibi_slopes=slopes)
-        nbytes, flops = paged_bytes_and_flops(ab, lens)
+        b = paged_pools(batch, kv, alibi=alibi)
+        N, C, H, hd = b["q"].shape
+        nbytes, flops = paged_bytes_and_flops(b, lens)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        kd, vd, qd, mask = dense_sdpa_operands(ab, lens)
-        fmask = alibi_sdpa_mask(ab, mask)
-        t = {"ms": time_fn(lambda: paged_attention(**ab), iters=50, flush=flush),
-             "plain_ms": time_fn(lambda: paged_attention_reference(**ab), iters=20, flush=flush),
-             "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=fmask),
-                                   iters=50, flush=flush),
-             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        pool = kv or "bf16"
-        timing[f"paged_attention_alibi[{pool},{label}]"] = t
-        log(f"[time] paged_attention alibi {label} {pool} pool, q {tuple(ab['q'].shape)} bf16, 32 kv "
-            f"heads: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA(dense, float ALiBi "
-            f"mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-        del kd, vd, qd, mask, fmask
-    d = timing["paged_attention_alibi[bf16,decode]"]
-    return dict(name="paged_attention_alibi", route="cuda",
-                source="deepspeed_tpu_torch/csrc/paged_attention.cu",
-                replaces="deepspeed_tpu/ops/pallas/paged_attention.py:124",
-                launches=launches["paged_attention_alibi"],
-                max_abs_err=max_err["paged_attention_alibi"],
-                shape="Bloom-7B1 decode q [8, 1, 32, 128], 32 kv heads, bf16 pool, lens 1-1000",
-                **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        kd, vd, qd, mask = dense_sdpa_operands(b, lens)
+        if alibi:
+            mask = alibi_sdpa_mask(b, mask)
+        fns = {form: functools.partial(pa_mod._paged_attention_form, form=form, **b)
+               for form in PAGED_FORMS if pa_mod.form_takes(form, b["q"].dtype, hd, b["block_size"])}
+        fns["sdpa"] = functools.partial(F.scaled_dot_product_attention, qd, kd, vd, attn_mask=mask)
+        readings = {}
+        got = time_turns(fns, iters=50, rounds=PAGED_TURN_ROUNDS, readings=readings, flush=flush)
+        picked = pa_mod.paged_form(b["q"].dtype, hd, C, H // b["pool_k_l"].shape[1], b["block_size"])
+        t = {"form": picked, "ms": got[picked], "forms_ms": {f: got[f] for f in PAGED_FORMS if f in got},
+             "library_ms": got["sdpa"], "turns_ms": readings,
+             "plain_ms": time_fn(lambda: paged_attention_reference(**b), iters=20, flush=flush),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "shape": f"q {list(b['q'].shape)}, {b['pool_k_l'].shape[1]} kv heads, {kv or 'bf16'} pool"
+                      f"{', ALiBi' if alibi else ''}",
+             # the picked form and SDPA with the L2 warm, back to back: what a
+             # cold read costs beside the kernel's own work
+             "warm_ms": {f: time_fn(fns[f], iters=100) for f in (picked, "sdpa")}}
+        timing[f"{name}[{label}]"] = t
+        log(f"[time] {name} {label} {t['shape']}, in turns: " + ", ".join(
+            f"{f} {ms:.4f} ms" for f, ms in got.items()) + f"; the wrapper picks {picked}; plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.2f} "
+            f"MB, {flops / 1e9:.3f} GFLOP); {picked} / SDPA {got[picked] / got['sdpa']:.3f}; L2 warm: "
+            + ", ".join(f"{f} {ms:.4f} ms" for f, ms in t["warm_ms"].items()))
+        del kd, vd, qd, mask, fns, b
+    sweep = {}
+    rng = np.random.default_rng(5)
+    for kvH, C in PAGED_SWEEP:
+        lens = [max(n, C) for n in (1, 17, 100, 250, 511, 512, 777, 1000)]
+        b, lens = paged_batch(dev, rng, lens=lens, new_lens=[C] * 8, kvH=kvH)
+        got = time_turns({f: functools.partial(pa_mod._paged_attention_form, form=f, **b)
+                          for f in ("split", "wgmma")}, iters=50, flush=flush)
+        rows = C * 32 // kvH
+        sweep[f"G={32 // kvH} C={C}"] = dict(got, rows=rows, picked=pa_mod.paged_form(
+            torch.bfloat16, 128, C, 32 // kvH, 16))
+        log(f"[time] paged crossover G = {32 // kvH}, C = {C} ({rows} (c, g) rows): split "
+            f"{got['split']:.4f} ms, W {got['wgmma']:.4f} ms; faster "
+            f"{min(got, key=got.get)}; the wrapper picks {sweep[f'G={32 // kvH} C={C}']['picked']} "
+            f"(PAGED_SPLIT_MAX_ROWS {pa_mod.PAGED_SPLIT_MAX_ROWS})")
+        del b
+    timing["paged_attention[crossover]"] = sweep
+    splits_sweep = {}
+    for tag, key, kv in (("llama bf16", "decode C=1, lens 1-1000", None),
+                         ("llama int8", "decode C=1, lens 1-1000", "int8"),
+                         ("bloom bf16", "bloom decode C=1, lens 1-1000", None),
+                         ("bloom int8", "bloom decode C=1, lens 1-1000", "int8")):
+        b = paged_pools(checks[key][0], kv, alibi=tag.startswith("bloom"))
+        got = time_turns({f"splits={n}": functools.partial(pa_mod._paged_attention_form, form="split",
+                                                           splits=n, **b)
+                          for n in PAGED_SPLIT_SWEEP}, iters=50, flush=flush)
+        N, kvH, P = b["q"].shape[0], b["pool_k_l"].shape[1], b["block_tables"].shape[1]
+        planned = pa_mod.split_plan(N, kvH, P, torch.cuda.get_device_properties(dev).multi_processor_count,
+                                    kv is None)[0]
+        splits_sweep[tag] = dict(got, planned=planned)
+        log(f"[time] paged split count sweep {tag} (P {P}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in got.items()) + f"; the plan takes {planned}")
+        del b
+    timing["paged_attention[split sweep]"] = splits_sweep
+    entries = []
+    for name, (replaces, shape) in PAGED_ENTRIES.items():
+        dec = timing[f"{name}[{'int8 decode' if name == 'paged_attention_quant' else 'decode'}]"]
+        pre = timing[f"{name}[{'int8 prefill' if name == 'paged_attention_quant' else 'prefill'}]"]
+        entries.append(dict(
+            name=name, route="cuda", source="deepspeed_tpu_torch/csrc/paged_attention.cu",
+            replaces=replaces, launches=launches[name], max_abs_err=max_err[name], shape=shape,
+            form=dec["form"], forms_ms=dec["forms_ms"],
+            launches_by_form=launches["paged_by_form"][name],
+            prefill={k: pre[k] for k in ("shape", "form", "ms", "forms_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+    return entries
 
 
 def grouped_library_call(lhs, rhs, gs):
@@ -2330,14 +2563,15 @@ def grouped_library_call(lhs, rhs, gs):
     return "per-group cuBLAS loop", loop
 
 
-def time_turns(fns, iters, rounds=1, readings=None):
-    """Each function of ``fns`` timed twice a round by ``time_fn``, in the
-    order given and then in reverse (a b c c b a), on one card: the mean of
-    its readings. ``readings``, if given, receives each one's list."""
+def time_turns(fns, iters, rounds=1, readings=None, flush=None):
+    """Each function of ``fns`` timed twice a round by ``time_fn`` (with
+    ``flush`` before each call, if given), in the order given and then in
+    reverse (a b c c b a), on one card: the mean of its readings.
+    ``readings``, if given, receives each one's list."""
     got = {name: [] for name in fns}
     for _ in range(rounds):
         for name in list(fns) + list(reversed(fns)):
-            got[name].append(time_fn(fns[name], iters=iters))
+            got[name].append(time_fn(fns[name], iters=iters, flush=flush))
     if readings is not None:
         readings.update(got)
     return {name: sum(ts) / len(ts) for name, ts in got.items()}
@@ -2486,60 +2720,7 @@ def phase_time(dev, checks, launches, max_err, results):
                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}))
     del x, s, b
 
-    for label, (batch, lens) in (("decode", checks["decode C=1, lens 1-1000"]),
-                                 ("prefill", checks["prefill C=512, ragged, pad row"])):
-        nbytes, flops = paged_bytes_and_flops(batch, lens)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        q = batch["q"]
-        kd, vd, qd, mask = dense_sdpa_operands(batch, lens)
-        t = {"ms": time_fn(lambda: paged_attention(**batch), iters=50, flush=flush),
-             "plain_ms": time_fn(lambda: paged_attention_reference(**batch), iters=20, flush=flush),
-             "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-                                   iters=50, flush=flush),
-             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        timing[f"paged_attention[{label}]"] = t
-        log(f"[time] paged_attention {label} {tuple(q.shape)} bf16: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, SDPA(dense) {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-        del kd, vd, qd, mask
-    d = timing["paged_attention[decode]"]
-    kernels.append(dict(name="paged_attention", route="cuda",
-                        source="deepspeed_tpu_torch/csrc/paged_attention.cu",
-                        replaces="deepspeed_tpu/ops/pallas/paged_attention.py:59",
-                        launches=launches["paged_attention"], max_abs_err=max_err["paged_attention"],
-                        shape="decode q [8, 1, 32, 128], lens 1-1000, bf16",
-                        **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
-
-    # the quantised pool: int8 and e4m3 codes, bf16 q, the same two batches
-    for kv in KV_CODE_DTYPES:
-        for label, (batch, lens) in (("decode", checks["decode C=1, lens 1-1000"]),
-                                     ("prefill", checks["prefill C=512, ragged, pad row"])):
-            qb = quantised_batch(batch, kv)
-            nbytes, flops = paged_bytes_and_flops(qb, lens)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-            kd, vd, qd, mask = dense_sdpa_operands(qb, lens)
-            t = {"ms": time_fn(lambda: paged_attention(**qb), iters=50, flush=flush),
-                 "plain_ms": time_fn(lambda: paged_attention_reference(**qb), iters=20, flush=flush),
-                 "library_ms": time_fn(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-                                       iters=50, flush=flush),
-                 "bound_ms": max(t_bytes, t_ops),
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            timing[f"paged_attention_quant[{kv},{label}]"] = t
-            log(f"[time] paged_attention_quant {label} {kv} pool, q {tuple(qb['q'].shape)} bf16: "
-                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA(dense, dequantised) "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-                f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-            del kd, vd, qd, mask
-    d = timing["paged_attention_quant[int8,decode]"]
-    kernels.append(dict(name="paged_attention_quant", route="cuda",
-                        source="deepspeed_tpu_torch/csrc/paged_attention.cu",
-                        replaces="deepspeed_tpu/ops/pallas/paged_attention.py:59",
-                        launches=launches["paged_attention_quant"],
-                        max_abs_err=max_err["paged_attention_quant"],
-                        shape="decode q [8, 1, 32, 128] bf16, int8 pool, lens 1-1000",
-                        **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
-
-    kernels.append(time_paged_alibi(dev, checks, launches, max_err, timing, flush))
+    kernels += time_paged(dev, checks, launches, max_err, timing, flush)
 
     # the quantisers at a w_up layer slice, bf16 (what WOQ quantises and reads)
     x = torch.randn(W_UP_SLICE, device=dev, dtype=torch.bfloat16) * 0.02
@@ -3386,6 +3567,13 @@ def main(argv=None) -> int:
                                      for f in fa.FWD_FORMS}
     launches["flash_bwd_by_form"] = {f: sum(results[tag]["flash_bwd_by_form"][f] for tag in trainings)
                                      for f in fa.BWD_FORMS}
+    # the paged kernel's launches by form, by kernel line entry: the serving runs
+    servings = {"paged_attention": ["serve", "mixtral-8x7b bf16"],
+                "paged_attention_quant": [*QUANT_ENGINES, "mixtral-8x7b int8 kv"],
+                "paged_attention_alibi": list(BLOOM_ENGINES)}
+    launches["paged_by_form"] = {
+        entry: {f: sum(results[tag]["paged_launches_by_form"][f] for tag in tags)
+                for f in pa_mod.PAGED_FORMS} for entry, tags in servings.items()}
     kernels = phase_time(dev, checks, launches, max_err, results)
     if any(kernel["launches"] == 0 for kernel in kernels):
         log("[time] FAILED: a kernel was launched no time on the main path")

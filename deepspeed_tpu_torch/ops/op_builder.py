@@ -56,14 +56,14 @@ KERNELS: Dict[str, Dict[str, list]] = {
     },
     "paged_attention": {
         # q, k_pool, v_pool, slopes (or NULL), block_tables, q_positions, new_lens,
-        # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, stream
-        "ds_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # out, N, C, H, kvH, hd, P, block_size, q_scale, dtype, form
+        # (ops/paged_attention.py PAGED_FORMS), splits, span, ws, tickets, S_flat, stream
+        "ds_paged_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _I, _P, _P, _I, _P],
         # q, k_pool, v_pool, k_scale, v_scale, slopes (or NULL), block_tables, q_positions,
         # new_lens, out, N, C, H, kvH, hd, P, block_size, q_scale, dtype,
-        # kv (1 int8 | 2 e4m3), stream
-        "ds_paged_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        # kv (1 int8 | 2 e4m3), form, splits, span, ws, tickets, S_flat, stream
+        "ds_paged_attention_quant": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I, _I, _I, _P, _P, _I,
+                                                             _P],
     },
     "quantizer": {
         # x, n, block, dtype, vals, scales, stream

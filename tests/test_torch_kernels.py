@@ -19,7 +19,12 @@ by the kernel, scores and p rounded to bf16 by the plain version), and a
 relative L2 error of each query's output vector of at most 1e-4 fp32 / 2e-2
 bf16, which holds a long row's small outputs as tightly as a short row's;
 the same limits hold the ALiBi form over every pool type, at G = 1 (Bloom's
-MHA) and G = 4, pad rows (``new_lens`` 0) included.
+MHA) and G = 4, pad rows (``new_lens`` 0) included, and each of the paged
+kernel's forms by name ("split", W and S: ``_paged_attention_form``) at the
+same cases, every pool, ALiBi on and off; forms "split" and W with 1, 2 and
+64 splits give the same bits twice and leave every ticket counter at 0; the
+wrapper runs form W for bf16 above the threshold (C 2, 17 and 512) and never
+for a block size that is not a multiple of 8.
 The three flash-attention kernels are held to their plain versions by the
 relative L2 error of each (b, s, h) row vector of out, dq, dk and dv (1e-5
 fp32: summation order only; 2e-2 bf16: P and dS are rounded to bf16 before
@@ -83,6 +88,8 @@ over 2 and 4 ranks equal their plain runs bit for bit with n - 1 launches of
 each row a rank.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -132,6 +139,10 @@ from deepspeed_tpu_torch.utils.checks import (
     routed_group_sizes,
     row_rel_l2,
 )
+
+
+# the paged-attention module (``ops`` re-exports its function of the same name)
+pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 
 
 @pytest.fixture
@@ -383,6 +394,127 @@ def test_paged_alibi_kernel_matches_plain(cuda_device, case, dtype, kv):
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
     assert float(rel.max()) <= rel_l2, float(rel.max())
+
+
+# the kernel's forms by name (``_paged_attention_form``): (form, q dtype) runs
+PAGED_FORM_RUNS = {"split-bf16": ("split", torch.bfloat16), "split-fp32": ("split", torch.float32),
+                   "wgmma-bf16": ("wgmma", torch.bfloat16), "simt-bf16": ("simt", torch.bfloat16),
+                   "simt-fp32": ("simt", torch.float32)}
+PAGED_FORM_CASES = {
+    "decode": dict(C=1), "long": dict(C=1, ends=(200, 639, 999), P=64),
+    "prefill": dict(C=40), "pad_row": dict(C=4, pad_row=True), "garbage": dict(C=4, garbage=True),
+    "hd64": dict(C=5, H=8, kvH=2, hd=64), "decode G=1": dict(C=1, H=32, kvH=32),
+    "prefill G=1, pad row, garbage": dict(C=40, H=32, kvH=32, pad_row=True, garbage=True),
+}
+
+
+def _paged_case(dev, kw, dtype, kv, alibi):
+    """The case's batch on the card as keyword arguments of the wrappers:
+    q in ``dtype``, the pools in q's dtype or as ``kv`` codes with scales,
+    Bloom's slopes with ``alibi``."""
+    from deepspeed_tpu_torch.models.transformer import alibi_slopes
+
+    *arrays, bs = _paged_inputs(**kw)
+    q, pk, pv, bt, pos, lens = (torch.from_numpy(a).to(dev) for a in arrays)
+    b = dict(q=q.to(dtype), block_tables=bt, q_positions=pos, block_size=bs, new_lens=lens,
+             pool_k_l=pk.to(dtype), pool_v_l=pv.to(dtype))
+    if kv is not None:
+        kq, ks, vq, vs = _quantised_pool(pk, pv, kv)
+        b.update(pool_k_l=kq, pool_v_l=vq, k_scale=ks, v_scale=vs)
+    if alibi:
+        b["alibi_slopes"] = alibi_slopes(q.shape[2], dev)
+    return b
+
+
+def _paged_close(got, want, dtype):
+    tol, rel_l2 = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rel = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+    assert float(rel.max()) <= rel_l2, float(rel.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("run", sorted(PAGED_FORM_RUNS))
+@pytest.mark.parametrize("case", sorted(PAGED_FORM_CASES))
+def test_paged_forms_match_plain(cuda_device, case, run, kv, alibi):
+    """Each form by name against the plain version at the wrappers' cases
+    (hd 64 and 128, G 1 and 4, pad rows, garbage block-table tails), every
+    pool, ALiBi on and off, by the limits of ``test_paged_kernel_matches_plain``;
+    one launch, counted under its form on the wrapper that ran."""
+    form, dtype = PAGED_FORM_RUNS[run]
+    b = _paged_case(cuda_device, PAGED_FORM_CASES[case], dtype, kv, alibi)
+    wrapper = paged_attention if kv is None else paged_attention_quant
+    before = dict(wrapper.launches_by_form)
+    got = pa_mod._paged_attention_form(form=form, **b)
+    torch.cuda.synchronize()
+    before[form] += 1
+    assert wrapper.launches_by_form == before
+    _paged_close(got, paged_attention_reference(**b), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 64])
+@pytest.mark.parametrize("form", ["split", "wgmma"])
+def test_paged_splits_bit_equal_and_tickets_zero(cuda_device, form, splits, kv):
+    """Forms "split" and W with 1, 2 and many (one a page) splits: within the
+    limits of the plain version, bit-equal over two runs (the splits merge
+    in a fixed order), and every ticket counter back at zero after the call."""
+    kw = dict(C=1, ends=(200, 639, 999), P=64, pad_row=True) if form == "split" else dict(
+        C=40, ends=(200, 639, 999), P=64, pad_row=True)
+    b = _paged_case(cuda_device, kw, torch.bfloat16, kv, alibi=True)
+    got = pa_mod._paged_attention_form(form=form, splits=splits, **b)
+    again = pa_mod._paged_attention_form(form=form, splits=splits, **b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert all(int(t.abs().sum()) == 0 for t in pa_mod._TICKETS.values())
+    _paged_close(got, paged_attention_reference(**b), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("C", [pa_mod.PAGED_SPLIT_MAX_ROWS // 4 + 2, 17, 512])
+def test_paged_wrapper_picks_form_w_above_the_threshold(cuda_device, C, kv):
+    """bf16 prefill just above the threshold (C = 2: 8 (c, g) rows, few
+    blocks, so form W splits its keys), at C = 17 (a partial 128-row tile)
+    and at C = 512: the wrapper runs form W, once, within the limits of the
+    plain version."""
+    kw = dict(C=C, ends=(600, 511, 700), P=48, pad_row=C < 512)
+    b = _paged_case(cuda_device, kw, torch.bfloat16, kv, alibi=False)
+    wrapper = paged_attention if kv is None else paged_attention_quant
+    assert pa_mod.paged_form(torch.bfloat16, 128, C, 4, 16) == "wgmma"
+    before = dict(wrapper.launches_by_form)
+    got = paged_attention(**b)
+    torch.cuda.synchronize()
+    before["wgmma"] += 1
+    assert wrapper.launches_by_form == before
+    _paged_close(got, paged_attention_reference(**b), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 40])
+@pytest.mark.parametrize("bs", [16, 12])
+def test_paged_block_size_reaches_form_w_only_in_whole_atoms(cuda_device, bs, C):
+    """bs 16 reaches form W above the threshold; bs 12 (not a multiple of 8)
+    never does: the wrapper runs form "split" at decode and form S above,
+    and form W named on it raises."""
+    b = _paged_case(cuda_device, dict(C=C, bs=bs), torch.bfloat16, None, alibi=False)
+    want_form = "split" if C == 1 else ("wgmma" if bs % 8 == 0 else "simt")
+    assert pa_mod.paged_form(torch.bfloat16, 128, C, 4, bs) == want_form
+    before = dict(paged_attention.launches_by_form)
+    got = paged_attention(**b)
+    torch.cuda.synchronize()
+    before[want_form] += 1
+    assert paged_attention.launches_by_form == before
+    _paged_close(got, paged_attention_reference(**b), torch.bfloat16)
+    if bs % 8:
+        with pytest.raises(ValueError, match="does not take"):
+            pa_mod._paged_attention_form(form="wgmma", **b)
+        with pytest.raises(ValueError, match="does not take"):
+            pa_mod._paged_attention_form(**dict(b, q=b["q"].float(), pool_k_l=b["pool_k_l"].float(),
+                                                pool_v_l=b["pool_v_l"].float()), form="wgmma")
 
 
 @pytest.mark.cuda

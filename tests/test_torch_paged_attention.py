@@ -143,3 +143,171 @@ def test_paged_quantized_needs_both_scales():
                                     for a in _setup())
     with pytest.raises(ValueError, match="both"):
         paged_attention(q, pk, pv, bt, pos, bs, new_lens=lens, k_scale=torch.ones(1))
+
+
+# ---------------------------------------------------------------- the kernel's forms
+# (the kernels themselves are held to the plain version on the card in
+# test_torch_kernels.py; here the form choice, the split plan and a plain model
+# of form "split"'s algorithm)
+
+import importlib  # noqa: E402
+
+from deepspeed_tpu_torch.inference.paged import _kv_block_quant as _port_kv_quant  # noqa: E402
+from deepspeed_tpu_torch.ops.paged_attention import (  # noqa: E402
+    PAGED_SPLIT_MAX_ROWS,
+    paged_attention_reference,
+    paged_attention_split_model,
+    paged_form,
+    split_plan,
+)
+
+# the module (``ops`` re-exports its function of the same name)
+pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+BF16, F32 = torch.bfloat16, torch.float32
+T = PAGED_SPLIT_MAX_ROWS
+
+
+@pytest.mark.parametrize("dtype,hd,C,G,bs,want", [
+    # decode takes form "split" whatever G, dtype and bs
+    (BF16, 128, 1, 4, 16, "split"), (BF16, 128, 1, 1, 16, "split"), (BF16, 64, 1, 71, 16, "split"),
+    (F32, 128, 1, 32, 16, "split"), (BF16, 128, 1, 4, 5, "split"), (BF16, 128, 1, 4, 256, "split"),
+    # the threshold on C * G: C * G = T rows at G = 1 (and at G = T, C = 1),
+    # one row more at G = 1 and at G = 2
+    (BF16, 128, T, 1, 16, "split"), (F32, 128, T, 1, 16, "split"),
+    (BF16, 128, T, 1, 12, "split"), (BF16, 64, 1, T, 16, "split"),
+    (BF16, 128, T + 1, 1, 16, "wgmma"), (BF16, 128, T + 1, 2, 16, "wgmma"),
+    (BF16, 128, 2, 4, 16, "wgmma"), (BF16, 64, 512, 4, 16, "wgmma"),
+    # above it: fp32 and the pages TMA cannot take go to form S
+    (F32, 128, T + 1, 1, 16, "simt"), (F32, 128, T + 1, 2, 16, "simt"),
+    (F32, 64, 512, 4, 16, "simt"),
+    (BF16, 128, 512, 4, 8, "wgmma"), (BF16, 128, 512, 4, 128, "wgmma"),
+    (BF16, 128, 512, 4, 12, "simt"), (BF16, 128, 512, 4, 4, "simt"), (BF16, 128, 512, 4, 1, "simt"),
+    (BF16, 128, 512, 4, 136, "simt"), (BF16, 128, 512, 4, 256, "simt"),
+    (BF16, 96, 512, 4, 16, "simt"),
+])
+def test_paged_form_boundaries(dtype, hd, C, G, bs, want):
+    assert paged_form(dtype, hd, C, G, bs) == want
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("name,N,kvH,P", [
+    ("llama-8b decode", 8, 8, 128), ("bloom-7b1 decode", 8, 32, 128),
+    ("mixtral decode", 16, 8, 128), ("llama-8b decode, P=63", 8, 8, 63),
+    ("one page", 8, 8, 1), ("one page, one pair", 1, 1, 1), ("many pairs", 64, 32, 128),
+])
+def test_split_plan(name, N, kvH, P, tensor_cores):
+    sms = 132
+    per_sm, span_pages = pa_mod.SPLIT_PLAN[tensor_cores]
+    splits, span = split_plan(N, kvH, P, sms, tensor_cores)
+    assert 1 <= splits <= P and span >= 1
+    assert splits * span >= P and (splits - 1) * span < P  # a full-length row: every span live
+    assert span <= span_pages  # a long row spreads over enough blocks
+    blocks = N * kvH * splits
+    if P == 1 or (N * kvH >= per_sm * sms and P <= span_pages):
+        assert splits == 1
+    elif P <= span_pages * per_sm * sms // (N * kvH):  # about the plan's blocks an SM
+        assert per_sm * sms // 2 <= blocks <= per_sm * sms, blocks
+
+
+@pytest.mark.parametrize("tensor_cores,shape,want", [
+    (True, (8, 8, 128), (8, 16)),  # Llama decode, a 2048-token table: the span bound
+    (True, (8, 8, 63), (4, 16)),  # its pairs: ~2 blocks an SM
+    (True, (8, 32, 128), (8, 16)),  # Bloom
+    (True, (16, 8, 128), (8, 16)),  # Mixtral
+    (False, (8, 8, 128), (16, 8)),  # an int8 pool: more, shorter spans
+    (False, (8, 8, 63), (8, 8)),
+    (False, (8, 32, 128), (16, 8)),
+    (True, (8, 8, 1), (1, 1)),
+])
+def test_split_plan_values(tensor_cores, shape, want):
+    assert split_plan(*shape, 132, tensor_cores) == want
+
+
+@pytest.mark.parametrize("N,kvH,R,P,bs,want", [
+    (8, 8, 1008 * 4, 128, 16, (1, 128)),  # an 8-prompt prefill [8, 1008]: blocks enough
+    (5, 8, 512 * 4, 62, 16, (1, 62)),  # the [5, 512] chunk of phase 7
+    (8, 8, 8, 63, 16, (2, 32)),  # C = 2, G = 4: 64 blocks, 2 spans of whole tiles
+    (3, 8, 20, 48, 16, (3, 16)),  # C = 5: a span of two tiles
+    (1, 1, 8, 128, 32, (32, 4)),  # one unit: a tile (4 pages of 32) a span
+])
+def test_w_plan(N, kvH, R, P, bs, want):
+    """Form W splits its keys only where its blocks do not fill the SMs, in
+    spans of whole 128-key tiles."""
+    splits, span = pa_mod.w_plan(N, kvH, R, P, bs, 132)
+    assert (splits, span) == want
+    assert span % (pa_mod.W_TILE_KEYS // bs) == 0 or splits == 1
+    assert splits * span >= P and (splits - 1) * span < P
+
+
+def _fp32_model_case(case, G, kv=None, alibi=False):
+    """(tensors, block_size) of a model case in fp32: q, pools (codes and
+    scales with ``kv``), block tables, positions, new_lens; ALiBi slopes."""
+    H, kvH = (8, 8) if G == 1 else (8, 2)
+    if case == "pad_and_garbage":
+        q, pk, pv, bt, pos, lens, bs = _setup_pad_and_garbage()
+    else:
+        q, pk, pv, bt, pos, lens, bs = _setup(C=1 if case == "decode" else 4, H=H, kvH=kvH)
+        if case == "nothing_visible":
+            pos[1], lens[1] = -1, 0  # a row that sees no key: output 0
+    if case == "pad_and_garbage" and G == 1:
+        q = np.concatenate([q] * 4, axis=2)[:, :, :8]
+        pk, pv = (np.concatenate([x] * 4, axis=1) for x in (pk, pv))
+    t = {k: torch.from_numpy(v) for k, v in dict(q=q, pool_k_l=pk, pool_v_l=pv, block_tables=bt,
+                                                   q_positions=pos, new_lens=lens).items()}
+    if kv is not None:
+        t["pool_k_l"], t["k_scale"] = _port_kv_quant(t["pool_k_l"], kv)
+        t["pool_v_l"], t["v_scale"] = _port_kv_quant(t["pool_v_l"], kv)
+    if alibi:
+        t["alibi_slopes"] = torch.tensor([2.0 ** (-(i + 1) / 2) for i in range(q.shape[2])])
+    return t, bs
+
+
+@pytest.mark.parametrize("splits", [1, 2, 6])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("case", ["prefill", "decode", "nothing_visible", "pad_and_garbage"])
+def test_split_model_matches_plain(case, G, kv, alibi, splits):
+    """Form "split"'s algorithm (per-warp online softmax over 16-token chunks,
+    the warps' and the splits' partials merged in the kernel's order) against
+    the plain version in fp32 within 1e-6: one split, two, and one a page
+    (most of them past the rows' live pages: empty partials); pad rows and
+    block-table tails pointing at +-1e4 pages; a row that sees no key gives
+    0 (the plain version's -1e30 fill gives it the mean of the gathered
+    values, so it is held apart)."""
+    t, bs = _fp32_model_case(case, G, kv, alibi)
+    got = paged_attention_split_model(block_size=bs, splits=splits, **t)
+    want = paged_attention_reference(block_size=bs, **t)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    dead = (t["q_positions"] < 0)  # [N, C]
+    assert bool((got[dead] == 0).all())
+    torch.testing.assert_close(got[~dead], want[~dead], rtol=1e-6, atol=1e-6)
+    if splits > 1:  # the split only reorders the sums
+        one = paged_attention_split_model(block_size=bs, splits=1, **t)
+        torch.testing.assert_close(got, one, rtol=1e-6, atol=1e-6)
+
+
+def test_split_model_row_groups():
+    """C * G = 20 rows: two row groups of 16 in the kernel, each with its own
+    live pages; the model's result is the plain version's."""
+    t, bs = _fp32_model_case("prefill", 4)
+    t["q"] = torch.from_numpy(np.random.default_rng(3).standard_normal((3, 5, 8, 32)).astype(np.float32))
+    t["q_positions"] = torch.stack([torch.arange(5) + e - 4 for e in (5, 37, 90)]).int()
+    t["new_lens"] = torch.full((3,), 5, dtype=torch.int32)
+    torch.testing.assert_close(paged_attention_split_model(block_size=bs, splits=3, **t),
+                               paged_attention_reference(block_size=bs, **t), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("form", ["split", "wgmma", "simt", "nope"])
+def test_named_form_on_cpu_raises(form, monkeypatch):
+    """A form is a kernel: named on a CPU tensor it raises and the plain
+    version does not run."""
+    calls = []
+    monkeypatch.setattr(pa_mod, "paged_attention_reference", lambda *a, **k: calls.append(1))
+    t, bs = _fp32_model_case("prefill", 4)
+    before = (pa_mod.paged_attention.launches, dict(pa_mod.paged_attention.launches_by_form))
+    with pytest.raises(ValueError):
+        pa_mod._paged_attention_form(t["q"], t["pool_k_l"], t["pool_v_l"], t["block_tables"],
+                                     t["q_positions"], bs, t["new_lens"], form)
+    assert not calls
+    assert (pa_mod.paged_attention.launches, pa_mod.paged_attention.launches_by_form) == before
