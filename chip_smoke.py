@@ -2513,8 +2513,7 @@ def time_paged(dev, checks, launches, max_err, timing, flush):
             torch.bfloat16, 128, C, 32 // kvH, 16))
         log(f"[time] paged crossover G = {32 // kvH}, C = {C} ({rows} (c, g) rows): split "
             f"{got['split']:.4f} ms, W {got['wgmma']:.4f} ms; faster "
-            f"{min(got, key=got.get)}; the wrapper picks {sweep[f'G={32 // kvH} C={C}']['picked']} "
-            f"(PAGED_SPLIT_MAX_ROWS {pa_mod.PAGED_SPLIT_MAX_ROWS})")
+            f"{min(got, key=got.get)}; the wrapper picks {sweep[f'G={32 // kvH} C={C}']['picked']}")
         del b
     timing["paged_attention[crossover]"] = sweep
     splits_sweep = {}

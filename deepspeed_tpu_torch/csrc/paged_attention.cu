@@ -41,7 +41,7 @@
 // in their own ways. The wrapper (ops/paged_attention.py paged_form) picks
 // one from shapes alone, never from a device tensor:
 //
-// - Form "split" (decode: C == 1, or C * G <= PAGED_SPLIT_MAX_ROWS; every
+// - Form "split" (decode: C == 1; every
 //   dtype and pool, ALiBi or not, any bs). What bounds it: bytes. At Llama
 //   decode every live page is read once (hd * 2 values * itemsize per token
 //   and kv head) for 4 * G * hd flops, ~8 flops a byte in bf16, and the
@@ -67,8 +67,8 @@
 //     chunks in flight in its own cp.async ring (token rows gathered through
 //     the block table, zero-filled past the span's live end; a quantised
 //     pool's codes and scales travel raw, a half or a quarter of the bytes,
-//     and are dequantised in registers). A bf16 pool with at most 8 rows
-//     (bf16 decode up to G = 8) multiplies on the tensor cores: mma.sync
+//     and are dequantised in registers). A bf16 pool with at most 4 rows
+//     (bf16 decode up to G = 4) multiplies on the tensor cores: mma.sync
 //     m16n8k16 for S = Q K^T (the rows padded to 16, Q's fragments held in
 //     registers, K's rows the B operand by ldmatrix) and m16n8k8 for O += P
 //     V (P's fragment the scores' own, rounded to bf16; V by ldmatrix.trans);
@@ -89,7 +89,7 @@
 //     combine kernel and no memset run (the wrapper zeroes the counters
 //     once, per device and stream). With one split the block writes the
 //     output directly.
-// - Form W ("wgmma", prefill: bf16 q above the threshold, hd 64 or 128,
+// - Form W ("wgmma", prefill: bf16 q at C > 1, hd 64 or 128,
 //   bs % 8 == 0 and bs <= 128; every pool, ALiBi or not). What bounds it:
 //   operations at a long prefill (the [5, 512, 32, 128] chunk is 5.1 GFLOP
 //   of products on 15 MB of live pages). Built from form W of the flash
@@ -117,7 +117,7 @@
 //     calls the kernel with one pool slice a layer. Grid (row tile, kv head
 //     x split, row); where the tiles give fewer blocks than SMs the keys are
 //     split as in form "split", with the same workspace, tickets and merge.
-// - Form S ("simt", the first form: fp32 q above the threshold, a bs that
+// - Form S ("simt", the first form: fp32 q at C > 1, a bs that
 //   TMA cannot take, and by name): below.
 //
 // Form S. Grid (query tile, kv head, row n); 256 threads per block.
@@ -634,9 +634,9 @@ template <typename T, typename KV, int HD, int kRows, bool kAlibi>
 __global__ void __launch_bounds__(kThreadsS)
 paged_split_kernel(const Args a) {
   constexpr bool kQuant = !std::is_same<KV, T>::value;
-  // a bf16 pool with at most 8 rows: the products on the tensor cores
+  // a bf16 pool with at most 4 rows: the products on the tensor cores
   // (mma.sync, the rows padded to 16); else FMAs on the CUDA cores
-  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value && !kQuant && kRows <= 8;
+  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value && !kQuant && kRows <= 4;
   constexpr int kE = HD / 32;  // output columns a lane
   constexpr int kVecKV = 16 / static_cast<int>(sizeof(KV));
   using L = Smem<KV, HD, kRows>;

@@ -45,19 +45,18 @@ The kernel has three forms (``PAGED_FORMS``; ``csrc/paged_attention.cu``
 sets out their designs). ``paged_form`` picks one from shapes alone, never
 from a device tensor (a ``.item()`` would synchronise the decode chain):
 
-- ``"split"`` (flash-decoding): every decode call (C == 1) and every call
-  of at most ``PAGED_SPLIT_MAX_ROWS`` (c, g) rows, any dtype, pool and
-  ``block_size``. The page range is cut into ``split_plan``'s spans, one
+- ``"split"`` (flash-decoding): every decode call (C == 1), any dtype,
+  pool and ``block_size``. The page range is cut into ``split_plan``'s spans, one
   block each, and the block that finishes a (row, kv head)'s splits last
   merges their partials in split order, in the same launch: the output is
   bit-equal from run to run. The merge's ticket counters live in one int32
   buffer per device and stream (``_TICKETS``), zeroed when it is made and
   left at zero by every launch.
-- ``"wgmma"`` (form W): bf16 q above the threshold with hd 64 or 128 and a
+- ``"wgmma"`` (form W): bf16 q at C > 1 with hd 64 or 128 and a
   ``block_size`` that is a multiple of 8 up to 128 (TMA brings a page a
   box), every pool type; where its row tiles give fewer blocks than the
   card has SMs, the keys are split as in form "split" (``w_plan``).
-- ``"simt"`` (form S, the first kernel): fp32 q above the threshold and a
+- ``"simt"`` (form S, the first kernel): fp32 q at C > 1 and a
   ``block_size`` TMA cannot take; kept by name so that it can be timed.
 
 Each wrapper counts its launches by form in ``launches_by_form``;
@@ -84,14 +83,8 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 QUANT_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 # form name -> the C entry's form code (csrc/paged_attention.cu, enum Form)
 PAGED_FORMS = {"simt": 0, "split": 1, "wgmma": 2}
-# calls of at most this many (c, g) query rows per (row, kv head) take form
-# "split"; every decode call (C == 1) does too, whatever G. Set from the
-# crossover measured on an H100 (chip_smoke.py phase 7's sweep; PERF.md):
-# form W is faster from C = 2 on (2 rows at G = 1, 8 at G = 4), so at 1 the
-# rule is "decode takes form split"
-PAGED_SPLIT_MAX_ROWS = 1
 # form "split"'s plan: (blocks an SM that ``split_plan`` aims at, the most
-# pages it lets a span take) on its tensor-core path (a bf16 pool, at most 8
+# pages it lets a span take) on its tensor-core path (a bf16 pool, at most 4
 # rows: a block's fixed costs outweigh its chunks, so fewer, longer spans)
 # and on its FMA path (int8/e4m3 and fp32 pools: each warp's chunks are the
 # cost, so more, shorter ones); chip_smoke.py phase 7 sweeps the split count
@@ -147,10 +140,12 @@ def paged_attention_reference(q, pool_k_l, pool_v_l, block_tables, q_positions, 
 
 def paged_form(dtype: torch.dtype, hd: int, C: int, G: int, bs: int) -> str:
     """The form a call of q ``[N, C, G * kvH, hd]`` in ``dtype`` over pages of
-    ``bs`` tokens runs, from shapes alone: "split" for decode (C == 1) and
-    for at most ``PAGED_SPLIT_MAX_ROWS`` (c, g) rows, "wgmma" (form W) for
-    bf16 above that where TMA takes the pages, "simt" (form S) otherwise."""
-    if C == 1 or C * G <= PAGED_SPLIT_MAX_ROWS:
+    ``bs`` tokens runs, from shapes alone: "split" for decode (C == 1),
+    "wgmma" (form W) for bf16 above that where TMA takes the pages, "simt"
+    (form S) otherwise. Form W is faster from C = 2 on, at G = 1 and at
+    G = 4 (the crossover measured on an H100 by chip_smoke.py phase 7's
+    sweep; PERF.md), so decode alone takes form "split"."""
+    if C == 1:
         return "split"
     if form_takes("wgmma", dtype, hd, bs):
         return "wgmma"
@@ -426,7 +421,7 @@ def _launch(q, pool_k_l, pool_v_l, block_tables, q_positions, block_size, new_le
         if splits is not None:
             splits, span = _split_span(P, splits)
         elif form == "split":
-            tensor_cores = q.dtype == torch.bfloat16 and k_scale is None and split_rows(R) <= 8
+            tensor_cores = q.dtype == torch.bfloat16 and k_scale is None and split_rows(R) <= 4
             splits, span = split_plan(N, kvH, P, _num_sms(index), tensor_cores)
         else:
             splits, span = w_plan(N, kvH, R, P, block_size, _num_sms(index))

@@ -23,7 +23,7 @@ MHA) and G = 4, pad rows (``new_lens`` 0) included, and each of the paged
 kernel's forms by name ("split", W and S: ``_paged_attention_form``) at the
 same cases, every pool, ALiBi on and off; forms "split" and W with 1, 2 and
 64 splits give the same bits twice and leave every ticket counter at 0; the
-wrapper runs form W for bf16 above the threshold (C 2, 17 and 512) and never
+wrapper runs form W for bf16 prefill (C 2, 17 and 512) and never
 for a block size that is not a multiple of 8.
 The three flash-attention kernels are held to their plain versions by the
 relative L2 error of each (b, s, h) row vector of out, dq, dk and dv (1e-5
@@ -475,9 +475,9 @@ def test_paged_splits_bit_equal_and_tickets_zero(cuda_device, form, splits, kv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", [None, "int8", "fp8"])
-@pytest.mark.parametrize("C", [pa_mod.PAGED_SPLIT_MAX_ROWS // 4 + 2, 17, 512])
+@pytest.mark.parametrize("C", [2, 17, 512])
 def test_paged_wrapper_picks_form_w_above_the_threshold(cuda_device, C, kv):
-    """bf16 prefill just above the threshold (C = 2: 8 (c, g) rows, few
+    """bf16 prefill just above decode (C = 2: 8 (c, g) rows, few
     blocks, so form W splits its keys), at C = 17 (a partial 128-row tile)
     and at C = 512: the wrapper runs form W, once, within the limits of the
     plain version."""
@@ -497,7 +497,7 @@ def test_paged_wrapper_picks_form_w_above_the_threshold(cuda_device, C, kv):
 @pytest.mark.parametrize("C", [1, 40])
 @pytest.mark.parametrize("bs", [16, 12])
 def test_paged_block_size_reaches_form_w_only_in_whole_atoms(cuda_device, bs, C):
-    """bs 16 reaches form W above the threshold; bs 12 (not a multiple of 8)
+    """bs 16 reaches form W above decode; bs 12 (not a multiple of 8)
     never does: the wrapper runs form "split" at decode and form S above,
     and form W named on it raises."""
     b = _paged_case(cuda_device, dict(C=C, bs=bs), torch.bfloat16, None, alibi=False)

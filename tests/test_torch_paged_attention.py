@@ -154,7 +154,6 @@ import importlib  # noqa: E402
 
 from deepspeed_tpu_torch.inference.paged import _kv_block_quant as _port_kv_quant  # noqa: E402
 from deepspeed_tpu_torch.ops.paged_attention import (  # noqa: E402
-    PAGED_SPLIT_MAX_ROWS,
     paged_attention_reference,
     paged_attention_split_model,
     paged_form,
@@ -164,21 +163,19 @@ from deepspeed_tpu_torch.ops.paged_attention import (  # noqa: E402
 # the module (``ops`` re-exports its function of the same name)
 pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 BF16, F32 = torch.bfloat16, torch.float32
-T = PAGED_SPLIT_MAX_ROWS
 
 
 @pytest.mark.parametrize("dtype,hd,C,G,bs,want", [
     # decode takes form "split" whatever G, dtype and bs
     (BF16, 128, 1, 4, 16, "split"), (BF16, 128, 1, 1, 16, "split"), (BF16, 64, 1, 71, 16, "split"),
     (F32, 128, 1, 32, 16, "split"), (BF16, 128, 1, 4, 5, "split"), (BF16, 128, 1, 4, 256, "split"),
-    # the threshold on C * G: C * G = T rows at G = 1 (and at G = T, C = 1),
-    # one row more at G = 1 and at G = 2
-    (BF16, 128, T, 1, 16, "split"), (F32, 128, T, 1, 16, "split"),
-    (BF16, 128, T, 1, 12, "split"), (BF16, 64, 1, T, 16, "split"),
-    (BF16, 128, T + 1, 1, 16, "wgmma"), (BF16, 128, T + 1, 2, 16, "wgmma"),
+    # the boundary is C: C = 1 takes form "split" at every G, C = 2 does not
+    (F32, 64, 1, 1, 16, "split"), (F32, 128, 1, 4, 8, "split"),
+    (BF16, 128, 1, 1, 12, "split"), (BF16, 64, 1, 8, 16, "split"),
+    (BF16, 128, 2, 1, 16, "wgmma"), (BF16, 128, 2, 2, 16, "wgmma"),
     (BF16, 128, 2, 4, 16, "wgmma"), (BF16, 64, 512, 4, 16, "wgmma"),
     # above it: fp32 and the pages TMA cannot take go to form S
-    (F32, 128, T + 1, 1, 16, "simt"), (F32, 128, T + 1, 2, 16, "simt"),
+    (F32, 128, 2, 1, 16, "simt"), (F32, 128, 2, 2, 16, "simt"),
     (F32, 64, 512, 4, 16, "simt"),
     (BF16, 128, 512, 4, 8, "wgmma"), (BF16, 128, 512, 4, 128, "wgmma"),
     (BF16, 128, 512, 4, 12, "simt"), (BF16, 128, 512, 4, 4, "simt"), (BF16, 128, 512, 4, 1, "simt"),
