@@ -161,17 +161,21 @@ Phases, any failure exits non-zero:
 6c. fused the fused GEMM collectives with 4 ranks of one group on the card, at
           llama3-1b's MLP widths: x [4096, 2048] a rank, w_up [2048, 8192]
           row-sharded (Ks 512), a row-parallel w_down shard [2048, 2048].
-          Rows 14 and 15 one launch at a time against their plain versions
-          (exact, int8 and e4m3 wires; integer payloads bit for bit, normal
-          ones by ``fused_gemm_close``; received shards, codes and scales bit for
+          Rows 14 and 15 one launch at a time, each form by name (T
+          "wgmma", S "simt"), against their plain versions (exact, int8 and
+          e4m3 wires; integer payloads bit for bit, normal ones by
+          ``fused_gemm_close``; received shards, codes and scales bit for
           bit); the forward and ``dx`` of ``sharded_matmul`` and the
           row-parallel reduce-scatter through the kernels against the plain
           versions, and the exact wire against the unfused ops; then, the
           counters zeroed just before and read just after, 3 ZeRO-3 SGD
           steps through ``sharded_matmul``, one with the int8 wire and
           ``row_parallel_linear`` with and without it: n - 1 launches of each
-          row a rank and op, the trajectory falling and within 1e-4 of the
-          same steps unfused;
+          row a rank and op, every one form T (``launches_by_form``), no
+          plain hop called, the trajectory falling and within 1e-4 of the
+          same steps unfused; a step fused and unfused in turns (f u u f,
+          twice) and one fused step under the profiler (kernel time, idle
+          share);
 7. time   each kernel with CUDA events beside its bound, its plain version and
           one PyTorch library call computing the same function (the paged
           kernel's forms "split", W and S and SDPA on K/V gathered beforehand
@@ -197,8 +201,9 @@ Phases, any failure exits non-zero:
           hop kernels at the largest gradient leaf's chunk (65.7 M
           elements: the int8 wire's relay beside ``Tensor.copy_``, one fused
           int8 hop), their NVLink bounds stated, not measured; the fused GEMM
-          hops at phase 6c's shapes (exact and int8 wires) beside their
-          fp32 operation bound, plain versions and ``addmm`` yardsticks.
+          hops at phase 6c's four hop shapes (exact and int8 wires), form T,
+          form S and the ``addmm`` / ``mm`` yardsticks in 2 palindromes,
+          beside the 3xTF32 and SIMT bounds and the plain versions.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -288,7 +293,7 @@ pa_mod = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of bytes / memory rate and operations / peak rate for the type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 # rms_norm kernel vs plain version, (rtol, atol) per element: both compute in
 # fp32 and round once; fp32 differs by sum order, bf16 by at most one output
@@ -504,6 +509,8 @@ def zero_counts() -> None:
         wrapper.launches_by_form.update(dict.fromkeys(pa_mod.PAGED_FORMS, 0))
     fa.flash_fwd.launches_by_form.update(dict.fromkeys(fa.FWD_FORMS, 0))
     fa.flash_bwd.launches_by_form.update(dict.fromkeys(fa.BWD_FORMS, 0))
+    for name in FUSED_KERNELS:
+        getattr(fg_mod, name).launches_by_form.update(dict.fromkeys(fg_mod.FUSED_FORMS, 0))
     model_mod._moe.dense_calls = model_mod._moe.ragged_calls = 0
 
 
@@ -844,11 +851,13 @@ def time_fn(fn, iters=100, warmup=10, flush=None):
     return float(np.median(times))
 
 
-def device_profile(fn):
+def device_profile(fn, union=False):
     """``fn`` run once timed alone and once under torch.profiler (device
     activity only: host op tracing would slow a host-bound loop), its wall
     time and its device time by kernel both from that one run. Returns
-    (profiled wall ms, its device kernel ms, unprofiled wall ms, rows)."""
+    (profiled wall ms, its device kernel ms, unprofiled wall ms, rows). With
+    ``union`` the device ms is the time covered by at least one kernel (the
+    kernels of concurrent streams overlap, so their sum can pass the wall)."""
 
     def wall_ms():
         torch.cuda.synchronize()
@@ -870,7 +879,17 @@ def device_profile(fn):
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), plain_wall_ms, rows
+    if not union:
+        return wall, sum(r[0] for r in rows), plain_wall_ms, rows
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            busy_us, end = busy_us + stop - start, stop
+        elif stop > end:
+            busy_us, end = busy_us + stop - end, stop
+    return wall, busy_us / 1e3, plain_wall_ms, rows
 
 
 def log_profile(tag, what, wall_ms, busy_ms, plain_wall_ms, rows):
@@ -2767,7 +2786,8 @@ def phase_time(dev, checks, launches, max_err, results):
     kernels.append(time_grouped(dev, launches, max_err, timing))
     kernels += time_collective_kernels(dev, launches, max_err, results["collectives"]["chunk"],
                                        timing)
-    kernels += time_fused_kernels(dev, launches, max_err, timing)
+    kernels += time_fused_kernels(dev, launches, max_err, timing,
+                                  results["fused"]["launches_by_form"])
     results["timing"] = timing
     return kernels
 
@@ -3089,18 +3109,19 @@ def fused_payload(shape, ints, g, dev):
 
 
 def check_fused_hops(dev, max_err):
-    """Rows 14 and 15 one launch at a time against their plain versions on
-    the same inputs, at the phase's shapes (rank 2's hop: the shard held at
-    column block 2), every wire, integer and normal payloads: products bit
-    for bit on integers, else by ``fused_gemm_close``; the received shard and
-    every code and scale bit for bit (row 15's codes against the plain block
-    math of the kernel's own partial). Returns failure strings."""
+    """Rows 14 and 15 one launch at a time, each form by name (form T
+    "wgmma" and form S "simt"), against their plain versions on the same
+    inputs, at the phase's shapes (rank 2's hop: the shard held at column
+    block 2), every wire, integer and normal payloads: products bit for bit
+    on integers, else by ``fused_gemm_close``; the received shard and every
+    code and scale bit for bit (row 15's codes against the plain block math
+    of the kernel's own partial). Returns failure strings."""
     n, (M, H), (_, F) = FUSED_RANKS, FUSED_X, FUSED_W_UP
     Ks = FUSED_W_UP[0] // n
     Kr, Nr = FUSED_W_ROW
     Mb = M // n
     g = torch.Generator(device=dev).manual_seed(11)
-    failures = []
+    failures, shares = [], {}
     for ints in (True, False):
         for kind in FUSED_WIRES:
             tag = f"{'ints' if ints else 'normal'} {kind}"
@@ -3111,46 +3132,65 @@ def check_fused_hops(dev, max_err):
             for out_block in (False, True):
                 x = fused_payload((M, F) if out_block else (M, H), ints, g, dev)
                 y0 = fused_payload((M, H) if out_block else (M, F), ints, g, dev)
-                outs = []
-                for fn in (fg_mod.ag_hop, fg_mod.ag_hop_plain):
+
+                def run(fn, **kw):
                     y, recv = y0.clone(), torch.empty(Ks, F, device=dev)
                     own = None if kind == "none" else (torch.empty_like(up[0]),
                                                        torch.empty_like(up[1]))
-                    fn(x, held, y, 2 * Ks, up, recv, own, qb=qb, out_block=out_block)
-                    outs.append((y, recv, own))
-                (y, recv, own), (wy, wrecv, wown) = outs
-                err, ok = fused_gemm_close(y, wy, F if out_block else Ks)
-                ok = ok and (not ints or bits_differ([y], [wy]) == 0)
-                ok = ok and bits_differ([recv], [wrecv]) == 0
-                ok = ok and (own is None or bits_differ(list(own), list(wown)) == 0)
-                max_err["ag_hop"] = max(max_err["ag_hop"], err)
-                if not ok:
-                    failures.append(f"ag_hop {'out_block' if out_block else 'accumulate'} {tag}: "
-                                    f"max abs {err:.3e}")
-                del x, y0, outs, y, wy
+                    fn(x, held, y, 2 * Ks, up, recv, own, qb=qb, out_block=out_block, **kw)
+                    return y, recv, own
+
+                wy, wrecv, wown = run(fg_mod.ag_hop_plain)
+                for form in fg_mod.FUSED_FORMS:
+                    y, recv, own = run(fg_mod.ag_hop, form=form)
+                    err, ok = fused_gemm_close(y, wy, F if out_block else Ks)
+                    note_share(shares, f"ag_hop {form}", err, wy, F if out_block else Ks)
+                    ok = ok and (not ints or bits_differ([y], [wy]) == 0)
+                    ok = ok and bits_differ([recv], [wrecv]) == 0
+                    ok = ok and (own is None or bits_differ(list(own), list(wown)) == 0)
+                    max_err["ag_hop"] = max(max_err["ag_hop"], err)
+                    if not ok:
+                        failures.append(f"ag_hop {form} {'out_block' if out_block else 'accumulate'} "
+                                        f"{tag}: max abs {err:.3e}")
+                    del y, recv, own
+                del x, y0, wy, wrecv, wown
             del held, up_vals, up
             x = fused_payload((M, Kr), ints, g, dev)
             w = fused_payload((Kr, Nr), ints, g, dev)
             qb = fused_gemm_qb(kind, Mb, Nr)
             up = block_wire(kind, fused_payload((Mb, Nr), ints, g, dev), qb)
-            outs = []
-            for fn in (fg_mod.rs_hop, fg_mod.rs_hop_plain):
+
+            def run_rs(fn, **kw):
                 part = torch.empty(Mb, Nr, device=dev)
                 own = None if kind == "none" else (torch.empty(Mb * Nr, dtype=up[0].dtype, device=dev),
                                                    torch.empty(Mb * Nr // qb, device=dev))
-                fn(x, w, Mb, up, part, own, qb=qb)
-                outs.append((part, own))
-            (part, own), (wpart, wown) = outs
-            err, ok = fused_gemm_close(part, wpart, Kr)
-            ok = ok and (not ints or bits_differ([part], [wpart]) == 0)
-            if own is not None:
-                ok = ok and bits_differ(list(own), list(block_wire(kind, part, qb))) == 0
-                ok = ok and (not ints or bits_differ(list(own), list(wown)) == 0)
-            max_err["rs_hop"] = max(max_err["rs_hop"], err)
-            if not ok:
-                failures.append(f"rs_hop {tag}: max abs {err:.3e}")
-            del x, w, up, outs, part, wpart
+                fn(x, w, Mb, up, part, own, qb=qb, **kw)
+                return part, own
+
+            wpart, wown = run_rs(fg_mod.rs_hop_plain)
+            for form in fg_mod.FUSED_FORMS:
+                part, own = run_rs(fg_mod.rs_hop, form=form)
+                err, ok = fused_gemm_close(part, wpart, Kr)
+                note_share(shares, f"rs_hop {form}", err, wpart, Kr)
+                ok = ok and (not ints or bits_differ([part], [wpart]) == 0)
+                if own is not None:
+                    ok = ok and bits_differ(list(own), list(block_wire(kind, part, qb))) == 0
+                    ok = ok and (not ints or bits_differ(list(own), list(wown)) == 0)
+                max_err["rs_hop"] = max(max_err["rs_hop"], err)
+                if not ok:
+                    failures.append(f"rs_hop {form} {tag}: max abs {err:.3e}")
+                del part, own
+            del x, w, up, wpart, wown
+    log("[fused] each form's largest error as a share of fused_gemm_close's absolute bound "
+        "(1e-6 x sqrt(K) x max|want|): " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
     return failures
+
+
+def note_share(shares, key, err, want, K):
+    """The largest ``err`` of ``key`` so far as a share of ``fused_gemm_close``'s
+    absolute bound for ``want`` over K products."""
+    atol = 1e-6 * max(float(want.abs().max()), 1.0) * K ** 0.5
+    shares[key] = max(shares.get(key, 0.0), err / atol)
 
 
 def fused_ops(group, xs, gs, ws, a, w_row, kind):
@@ -3245,16 +3285,44 @@ def phase_fused(dev, max_err, results):
         xr = [torch.randn(M, FUSED_W_ROW[0], generator=g, device=dev) for _ in range(n)]
         wr = [torch.randn(FUSED_W_ROW, generator=g, device=dev) * 0.02 for _ in range(n)]
         torch.cuda.synchronize()
-        zero_counts()
-        t1 = time.perf_counter()
-        losses, w_on = fused_sgd(group, xs, ts, w0, FUSED_STEPS)
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t1) / FUSED_STEPS
-        q_losses, _ = fused_sgd(group, xs, ts, w0, 1, quantize=True)
-        rows_exact = row_parallel_linear(xr, wr, group)
-        rows_int8 = row_parallel_linear(xr, wr, group, quantize=True)
-        torch.cuda.synchronize()
-        launches = launch_counts()
+        plain_calls = {"ag_hop": 0, "rs_hop": 0}
+        real = {k: getattr(fg_mod, f"{k}_plain") for k in plain_calls}
+
+        def spy(key):
+            def counted_plain(*a_, **k_):
+                plain_calls[key] += 1
+                return real[key](*a_, **k_)
+            return counted_plain
+
+        for k in plain_calls:
+            setattr(fg_mod, f"{k}_plain", spy(k))
+        try:
+            zero_counts()
+            t1 = time.perf_counter()
+            losses, w_on = fused_sgd(group, xs, ts, w0, FUSED_STEPS)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t1) / FUSED_STEPS
+            q_losses, _ = fused_sgd(group, xs, ts, w0, 1, quantize=True)
+            rows_exact = row_parallel_linear(xr, wr, group)
+            rows_int8 = row_parallel_linear(xr, wr, group, quantize=True)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            by_form = {k: dict(getattr(fg_mod, k).launches_by_form) for k in FUSED_KERNELS}
+        finally:
+            for k in plain_calls:
+                setattr(fg_mod, f"{k}_plain", real[k])
+        # the step fused and unfused in turns (f u u f, twice), then one fused
+        # step under the profiler
+        turns = {True: [], False: []}
+        for on in (True, False, False, True) * 2:
+            fg_mod.configure(enabled=on)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fused_sgd(group, xs, ts, w0, 1)
+            torch.cuda.synchronize()
+            turns[on].append((time.perf_counter() - t1) * 1e3)
+        fg_mod.configure(enabled=True)
+        prof = device_profile(lambda: fused_sgd(group, xs, ts, w0, 1), union=True)
     finally:
         fg_mod.configure(enabled=False)
     t1 = time.perf_counter()
@@ -3266,6 +3334,19 @@ def phase_fused(dev, max_err, results):
     steps = FUSED_STEPS + 1
     want = dict({k: 0 for k in launches}, ag_hop=2 * hops * steps, rs_hop=hops * (steps + 2),
                 fused_hop=3 * n + n, permute_leaves=FUSED_STEPS * n + n)
+    want_by_form = {k: dict(dict.fromkeys(fg_mod.FUSED_FORMS, 0), wgmma=want[k])
+                    for k in FUSED_KERNELS}
+    wall, busy, plain_wall, rows = prof
+    log_profile("fused", "one fused ZeRO-3 SGD step (4 ranks; device kernels: the time covered "
+                "by at least one)", wall, busy, plain_wall, rows)
+    hop_ms = sum(ms for ms, _, key in rows if "hop_tf32_kernel" in key or "ag_hop_kernel" in key
+                 or "rs_hop_kernel" in key)
+    log(f"[fused] the profiled step's kernels summed over the 4 ranks' streams: "
+        f"{sum(r[0] for r in rows):.2f} ms, the hop kernels {hop_ms:.2f} ms")
+    step_turns = {"fused": turns[True], "unfused": turns[False]}
+    log(f"[fused] a ZeRO-3 SGD step in turns (f u u f, twice), host ms: fused {turns[True]}, "
+        f"unfused {turns[False]}; mean fused {np.mean(turns[True]):.2f}, unfused "
+        f"{np.mean(turns[False]):.2f} ({'fused faster' if np.mean(turns[True]) < np.mean(turns[False]) else 'fused NOT faster'})")
     rel_loss = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(losses, l_off))
     rel_w = max(float((u - v).abs().max()) for u, v in zip(w_on, w_off)) / max(
         float(v.abs().max()) for v in w_off)
@@ -3278,12 +3359,19 @@ def phase_fused(dev, max_err, results):
         f"ms fused, {step_off_s * 1e3:.1f} ms unfused; the int8 wire's step loss {q_losses[0]:.6f}; "
         f"row_parallel_linear fused vs unfused max abs {rows_err:.3e}, int8 wire rel err vs "
         f"exact {q_rel:.3e}")
-    log(f"[fused] launches {launches} (expected {want})")
+    log(f"[fused] launches {launches} (expected {want}); rows 14-15 by form {by_form} (expected "
+        f"{want_by_form}); plain hop calls on the counted path {plain_calls}")
     results["fused"] = {"ranks": n, "x": list(FUSED_X), "w_up": list(FUSED_W_UP),
                         "w_row": list(FUSED_W_ROW), "losses_fused": losses, "losses_unfused": l_off,
                         "rel_loss": rel_loss, "rel_w": rel_w, "step_ms_fused": step_s * 1e3,
                         "step_ms_unfused": step_off_s * 1e3, "int8_step_loss": q_losses[0],
                         "rows_int8_rel_err": q_rel, "launches": launches, "expected": want,
+                        "launches_by_form": by_form, "plain_calls": plain_calls,
+                        "step_turns_ms": step_turns,
+                        "profiled_step": {"wall_ms": wall, "kernel_union_ms": busy,
+                                          "kernel_sum_ms": sum(r[0] for r in rows),
+                                          "idle_share": 1 - busy / wall, "hop_kernels_ms": hop_ms,
+                                          "top": [[ms, c, k[:110]] for ms, c, k in rows[:8]]},
                         "max_err": {k: max_err[k] for k in FUSED_KERNELS}}
     if not losses[-1] < losses[0]:
         failures.append(f"the fused trajectory does not fall: {losses}")
@@ -3300,90 +3388,154 @@ def phase_fused(dev, max_err, results):
     if launches != want:
         log("[fused] FAILED: launch counts do not match n - 1 a rank and op")
         return None
+    if by_form != want_by_form or any(plain_calls.values()):
+        log("[fused] FAILED: a hop of the counted path did not run form T (wgmma), or a plain "
+            "hop ran")
+        return None
     return launches
 
 
-def time_fused_kernels(dev, launches, max_err, timing):
-    """Rows 14 and 15 at the phase's shapes, one launch each (the exact wire;
-    the int8 wire beside it), with CUDA events: the bound is 2 M N K fp32
-    operations at 67 TFLOP/s (both are compute-bound: bytes at 3.35 TB/s
-    are stated beside it), the plain version, and the yardstick of PyTorch
-    calls computing the same: ``Tensor.addmm_`` of the product and
-    ``Tensor.copy_`` of the received shard (row 14), ``torch.addmm`` of the
-    upstream partial and the product (row 15)."""
+def fused_bounds(flops, nbytes):
+    """(3xTF32 bound ms, SIMT bound ms, bytes ms): 3 x the operations at the
+    TF32 rate (form T's three passes), the operations at fp32's CUDA-core
+    rate (form S), and the bytes at the HBM rate; each bound is the larger of
+    its operations' time and the bytes'."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(3 * flops / PEAK_FLOPS["tf32"] * 1e3, t_bytes),
+            max(flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes), t_bytes)
+
+
+def time_fused_kernels(dev, launches, max_err, timing, by_form):
+    """Rows 14 and 15 at phase 6c's four hop shapes (the gather's accumulate
+    and ``out_block`` hops, the reduce-scatter's ``dw`` and
+    ``row_parallel_linear`` hops), each with the exact and the int8 wire:
+    form T ("wgmma"), form S ("simt") and the library yardstick timed in
+    turns (``time_turns``, 2 palindromes, L2 warm: a hop's operands are read
+    where the previous hop left them), the plain version beside them. The
+    yardstick is the PyTorch calls computing the same: ``Tensor.addmm_`` of
+    the product and ``Tensor.copy_`` of the received shard (accumulate),
+    ``torch.mm`` into the block and the same ``copy_`` (``out_block``),
+    ``torch.addmm`` of the upstream partial and the product (row 15). Each
+    time is logged with its TFLOP/s, the 3xTF32 bound (the row's bound) and
+    the SIMT bound (the log's, not the kernel line's). Returns the kernel
+    line's two entries: the form the wrapper picks at the accumulate (row
+    14) and ``row_parallel_linear`` (row 15, as its first entry had it) hop,
+    the other shapes and forms inside."""
     n, (M, H), (_, F) = FUSED_RANKS, FUSED_X, FUSED_W_UP
     Ks = FUSED_W_UP[0] // n
-    Kr, Nr = FUSED_W_ROW
-    Mb = M // n
     g = torch.Generator(device=dev).manual_seed(13)
-    kernels = []
     x = torch.randn(M, H, generator=g, device=dev)
+    gout = torch.randn(M, F, generator=g, device=dev)
     held = torch.randn(Ks, F, generator=g, device=dev)
     y = torch.randn(M, F, generator=g, device=dev)
+    dx = torch.randn(M, H, generator=g, device=dev)
+    blk = torch.empty(M, Ks, device=dev)
     upstream = torch.randn(Ks, F, generator=g, device=dev)
     recv = torch.empty_like(held)
     xs = x[:, 2 * Ks:3 * Ks]
-    for kind in ("none", "int8"):
-        qb = fused_gemm_qb(kind, Ks, F)
-        up = block_wire(kind, upstream, qb)
-        own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
-        wire_b = sum(t.numel() * t.element_size() for t in up)
-        nbytes = (M * Ks + Ks * F + 2 * M * F + Ks * F) * 4 + wire_b * (2 if own else 1)
-        flops = 2 * M * Ks * F
-        t = {"ms": time_fn(lambda: fg_mod.ag_hop(x, held, y, 2 * Ks, up, recv, own, qb=qb), iters=20),
-             "plain_ms": time_fn(lambda: fg_mod.ag_hop_plain(x, held, y, 2 * Ks, up, recv, own, qb=qb),
-                                 iters=10, warmup=2),
-             "library_ms": time_fn(lambda: (y.addmm_(xs, held), recv.copy_(upstream)), iters=20),
-             "bound_ms": max(flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S) * 1e3,
-             "bound_by": "operations" if flops / PEAK_FLOPS[torch.float32] >= nbytes / HBM_BYTES_PER_S
-             else "bytes", "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        timing[f"ag_hop[{kind} x {M}x{Ks} @ {Ks}x{F}]"] = t
-        log(f"[time] ag_hop {kind} wire, y [{M}, {F}] += x[:, {Ks} cols] @ held [{Ks}, {F}] and the "
-            f"shard received: kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
-            f"{t['plain_ms']:.4f} ms, addmm_ + copy_ {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {flops / 1e9:.2f} GFLOP; bytes alone "
-            f"{t['bytes_ms']:.4f} ms)")
-        if kind == "none":
-            kernels.append(dict(name="ag_hop", route="cuda", source="deepspeed_tpu_torch/csrc/fused_gemm.cu",
-                                replaces="deepspeed_tpu/collectives/fused_gemm.py:198",
-                                launches=launches["ag_hop"], max_abs_err=max_err["ag_hop"],
-                                shape=f"fp32 wire, x [{M}, {Ks}] of [{M}, {H}] @ held [{Ks}, {F}]",
-                                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")}))
-    del x, held, y, upstream, recv, xs
-    x = torch.randn(M, Kr, generator=g, device=dev)
-    w = torch.randn(Kr, Nr, generator=g, device=dev)
-    part = torch.empty(Mb, Nr, device=dev)
-    prev = torch.randn(Mb, Nr, generator=g, device=dev)
-    xb = x[Mb:2 * Mb]
-    for kind in ("none", "int8"):
-        qb = fused_gemm_qb(kind, Mb, Nr)
-        up = block_wire(kind, prev, qb)
-        own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
-        wire_b = sum(t.numel() * t.element_size() for t in up)
-        nbytes = (Mb * Kr + Kr * Nr + Mb * Nr) * 4 + wire_b * (2 if own else 1)
-        flops = 2 * Mb * Kr * Nr
-        t = {"ms": time_fn(lambda: fg_mod.rs_hop(x, w, Mb, up, part, own, qb=qb), iters=20),
-             "plain_ms": time_fn(lambda: fg_mod.rs_hop_plain(x, w, Mb, up, part, own, qb=qb),
-                                 iters=10, warmup=2),
-             "library_ms": time_fn(lambda: torch.addmm(prev, xb, w, out=part), iters=20),
-             "bound_ms": max(flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S) * 1e3,
-             "bound_by": "operations" if flops / PEAK_FLOPS[torch.float32] >= nbytes / HBM_BYTES_PER_S
-             else "bytes", "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-        timing[f"rs_hop[{kind} x {Mb}x{Kr} @ {Kr}x{Nr}]"] = t
-        log(f"[time] rs_hop {kind} wire, part [{Mb}, {Nr}] = rprev + x[{Mb} rows] @ w [{Kr}, {Nr}]"
-            f"{' and its codes' if own else ''}: kernel {t['ms']:.4f} ms "
-            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, addmm "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-            f"{flops / 1e9:.2f} GFLOP; bytes alone {t['bytes_ms']:.4f} ms)")
-        if kind == "none":
-            kernels.append(dict(name="rs_hop", route="cuda", source="deepspeed_tpu_torch/csrc/fused_gemm.cu",
-                                replaces="deepspeed_tpu/collectives/fused_gemm.py:257",
-                                launches=launches["rs_hop"], max_abs_err=max_err["rs_hop"],
-                                shape=f"fp32 wire, x [{Mb}, {Kr}] @ w [{Kr}, {Nr}] + rprev",
-                                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")}))
-    return kernels
+    entries = {}
+    for out_block in (False, True):
+        label = "out_block" if out_block else "accumulate"
+        for kind in ("none", "int8"):
+            qb = fused_gemm_qb(kind, Ks, F)
+            up = block_wire(kind, upstream, qb)
+            own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
+            wire_b = sum(t.numel() * t.element_size() for t in up)
+            a_, out = (gout, dx) if out_block else (x, y)
+            # x's block (or g) and held read once, out read (accumulate) and
+            # written, the wire read and the received shard written (and its
+            # codes, before the last hop)
+            nbytes = (M * (F if out_block else Ks) + Ks * F + (1 if out_block else 2) * M *
+                      (Ks if out_block else F) + Ks * F) * 4 + wire_b * (2 if own else 1)
+            flops = 2 * M * Ks * F
+            fns = {form: functools.partial(fg_mod.ag_hop, a_, held, out, 2 * Ks, up, recv, own, qb=qb,
+                                           out_block=out_block, form=form)
+                   for form in fg_mod.FUSED_FORMS}
+            if out_block:
+                fns["library"] = lambda: (torch.mm(gout, held.t(), out=blk), recv.copy_(upstream))
+            else:
+                fns["library"] = lambda: (y.addmm_(xs, held), recv.copy_(upstream))
+            readings = {}
+            got = time_turns(fns, iters=20, rounds=2, readings=readings)
+            t3, ts, t_bytes = fused_bounds(flops, nbytes)
+            t = {"form": fg_mod._ag_form(a_, held, out, out_block), "forms_ms": {
+                     f: got[f] for f in fg_mod.FUSED_FORMS}, "readings": readings,
+                 "library_ms": got["library"], "bound_ms": t3, "simt_bound_ms": ts,
+                 "bound_by": "operations" if 3 * flops / PEAK_FLOPS["tf32"] * 1e3 >= t_bytes else "bytes",
+                 "bytes_ms": t_bytes,
+                 "plain_ms": time_fn(lambda: fg_mod.ag_hop_plain(a_, held, out, 2 * Ks, up, recv, own,
+                                                                 qb=qb, out_block=out_block),
+                                     iters=10, warmup=2)}
+            t["ms"] = t["forms_ms"][t["form"]]
+            shape = (f"g [{M}, {F}] @ held^T [{F}, {Ks}] into a block of [{M}, {H}]" if out_block
+                     else f"y [{M}, {F}] += x[:, {Ks} cols] @ held [{Ks}, {F}]")
+            timing[f"ag_hop[{label} {kind}]"] = t
+            log(f"[time] ag_hop {label}, {kind} wire, {shape} and the shard received: "
+                + ", ".join(f"form {f} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+                            for f, ms in t["forms_ms"].items())
+                + f"; the wrapper picks {t['form']}; library {t['library_ms']:.4f} ms "
+                f"({flops / t['library_ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms; "
+                f"bounds 3xTF32 {t3:.4f} ms, SIMT {ts:.4f} ms ({flops / 1e9:.2f} GFLOP; bytes alone "
+                f"{t_bytes:.4f} ms)")
+            entries[(label, kind)] = dict(t, shape=shape)
+    del x, gout, held, y, dx, blk, upstream, recv, xs
+    torch.cuda.empty_cache()
+    for label, (rows, Kr, Nr) in (("dw", (FUSED_W_UP[0], M, F)), ("row_parallel", (M,) + FUSED_W_ROW)):
+        Mb = rows // n
+        x = torch.randn(rows, Kr, generator=g, device=dev)
+        w = torch.randn(Kr, Nr, generator=g, device=dev)
+        part = torch.empty(Mb, Nr, device=dev)
+        prev = torch.randn(Mb, Nr, generator=g, device=dev)
+        xb = x[Mb:2 * Mb]
+        for kind in ("none", "int8"):
+            qb = fused_gemm_qb(kind, Mb, Nr)
+            up = block_wire(kind, prev, qb)
+            own = None if kind == "none" else (torch.empty_like(up[0]), torch.empty_like(up[1]))
+            wire_b = sum(t.numel() * t.element_size() for t in up)
+            nbytes = (Mb * Kr + Kr * Nr + Mb * Nr) * 4 + wire_b * (2 if own else 1)
+            flops = 2 * Mb * Kr * Nr
+            fns = {form: functools.partial(fg_mod.rs_hop, x, w, Mb, up, part, own, qb=qb, form=form)
+                   for form in fg_mod.FUSED_FORMS}
+            fns["library"] = lambda: torch.addmm(prev, xb, w, out=part)
+            readings = {}
+            got = time_turns(fns, iters=20, rounds=2, readings=readings)
+            t3, ts, t_bytes = fused_bounds(flops, nbytes)
+            t = {"form": fg_mod._rs_form(x, w, up, part, 0 if kind == "none" else 1),
+                 "forms_ms": {f: got[f] for f in fg_mod.FUSED_FORMS}, "readings": readings,
+                 "library_ms": got["library"], "bound_ms": t3, "simt_bound_ms": ts,
+                 "bound_by": "operations" if 3 * flops / PEAK_FLOPS["tf32"] * 1e3 >= t_bytes else "bytes",
+                 "bytes_ms": t_bytes,
+                 "plain_ms": time_fn(lambda: fg_mod.rs_hop_plain(x, w, Mb, up, part, own, qb=qb),
+                                     iters=10, warmup=2)}
+            t["ms"] = t["forms_ms"][t["form"]]
+            shape = f"part [{Mb}, {Nr}] = rprev + x[{Mb} rows] @ w [{Kr}, {Nr}]"
+            timing[f"rs_hop[{label} {kind}]"] = t
+            log(f"[time] rs_hop {label}, {kind} wire, {shape}{' and its codes' if own else ''}: "
+                + ", ".join(f"form {f} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+                            for f, ms in t["forms_ms"].items())
+                + f"; the wrapper picks {t['form']}; addmm {t['library_ms']:.4f} ms "
+                f"({flops / t['library_ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms; "
+                f"bounds 3xTF32 {t3:.4f} ms, SIMT {ts:.4f} ms ({flops / 1e9:.2f} GFLOP; bytes alone "
+                f"{t_bytes:.4f} ms)")
+            entries[(label, kind)] = dict(t, shape=shape)
+        del x, w, part, prev, xb
+        torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(name, replaces, head, others):
+        t = entries[head]
+        return dict(name=name, route="cuda", source="deepspeed_tpu_torch/csrc/fused_gemm.cu",
+                    replaces=replaces, launches=launches[name], max_abs_err=max_err[name],
+                    launches_by_form=by_form[name], form=t["form"], forms_ms=t["forms_ms"],
+                    shape=f"fp32 wire, {t['shape']}", **{k: t[k] for k in keys},
+                    shapes={f"{label} {kind}": dict(
+                        {k: entries[(label, kind)][k] for k in keys + ("form", "forms_ms", "shape")})
+                        for label, kind in others})
+
+    return [entry("ag_hop", "deepspeed_tpu/collectives/fused_gemm.py:198", ("accumulate", "none"),
+                  [("accumulate", "int8"), ("out_block", "none"), ("out_block", "int8")]),
+            entry("rs_hop", "deepspeed_tpu/collectives/fused_gemm.py:257", ("row_parallel", "none"),
+                  [("row_parallel", "int8"), ("dw", "none"), ("dw", "int8")])]
 
 
 def main(argv=None) -> int:

@@ -56,7 +56,22 @@ Each kernel has its plain PyTorch version beside it (``ag_hop_plain``,
 ``rs_hop_plain``: the TPU kernel's chunks, the same wire math). A wrapper
 runs the plain version only for CPU tensors; for CUDA tensors it launches
 its kernel or raises. Launches count in ``ag_hop.launches`` and
-``rs_hop.launches``.
+``rs_hop.launches``, and by form in ``launches_by_form``.
+
+Each kernel has two forms of its product (``FUSED_FORMS``), which
+:func:`fused_form` picks from shapes, strides and pointer alignment alone:
+
+- ``"wgmma"`` (form T): fp32 to fp32's accuracy on the tensor cores, three
+  TF32 passes (big*big + big*small + small*big of each operand's split) on
+  tiles that TMA brings into a ring; taken wherever TMA can describe both
+  operands (row strides multiples of 4 floats, 16-byte aligned bases, K >
+  0);
+- ``"simt"`` (form S): fp32 FMAs on the CUDA cores, for the rest.
+
+``tf32x3_matmul`` is the plain model of form T's arithmetic (TF32 rounding
+by bits, the three passes summed in fp32); the CPU tests hold it to JAX's
+hops, and nothing on the main path calls it. A form named on a CPU tensor
+raises: a form is a kernel.
 """
 
 from __future__ import annotations
@@ -148,7 +163,95 @@ def _record_hop(group: RankGroup, nbytes: int) -> None:
 
 # ---------------------------------------------------------------- the wires
 _WIRE_CODES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-_TILE = 128  # csrc/fused_gemm.cu: kBM = kBN, the rows and columns of a product tile
+# form name -> the C entries' form code (csrc/fused_gemm.cu)
+FUSED_FORMS = {"simt": 0, "wgmma": 1}
+# the rows and columns of an output tile, both forms' (csrc/fused_gemm.cu:
+# kBM = kBN, and a static_assert holds form T's TM x TN to them): row 15's
+# encode counts its groups of tiles
+_TILE = 128
+
+
+def fused_form(M: int, K: int, ldx: int, ldw: int, tma_ptrs: Sequence[int],
+               pair_ptrs: Sequence[int] = (), pair_ld: int = 0) -> str:
+    """The form of a hop's product from shapes, strides and addresses alone
+    (never a device read). Form T (``"wgmma"``) where TMA can describe both
+    operands and the epilogue's float2 pairs line up: ``M`` output rows and
+    ``K`` > 0, the activation's and the weight's row strides ``ldx`` and
+    ``ldw`` (floats) multiples of 4, every pointer of ``tma_ptrs`` 16-byte
+    aligned, every pointer of ``pair_ptrs`` 8-byte aligned and ``pair_ld``
+    even. Else form S (``"simt"``). The gather's column offset need not be
+    aligned: form T describes x whole."""
+    if M <= 0 or K <= 0 or ldx % 4 or ldw % 4 or pair_ld % 2:
+        return "simt"
+    if any(p % 16 for p in tma_ptrs) or any(p % 8 for p in pair_ptrs):
+        return "simt"
+    return "wgmma"
+
+
+def _ag_form(x: torch.Tensor, held: torch.Tensor, out: torch.Tensor, out_block: bool) -> str:
+    Ks, N = held.shape
+    return fused_form(x.shape[0], N if out_block else Ks, x.stride(0), N,
+                      (x.data_ptr(), held.data_ptr()),
+                      () if out_block else (out.data_ptr(),), 0 if out_block else out.stride(0))
+
+
+def _rs_form(x: torch.Tensor, w: torch.Tensor, up: Sequence[torch.Tensor], part: torch.Tensor,
+             code: int) -> str:
+    exact_up = (up[0].data_ptr(),) if up and code == 0 else ()
+    return fused_form(part.shape[0], x.shape[1], x.shape[1], w.shape[1],
+                      (x.data_ptr(), w.data_ptr()), (part.data_ptr(), *exact_up), w.shape[1])
+
+
+def _named_form(what: str, form: Optional[str], picked: str) -> str:
+    """``picked`` for ``form=None``; else the named form, if it takes the hop
+    (form S takes every hop, form T those ``fused_form`` picks it for)."""
+    if form is None:
+        return picked
+    if form not in FUSED_FORMS:
+        raise ValueError(f"{what}: unknown form {form!r}; forms are {sorted(FUSED_FORMS)}")
+    if form == "wgmma" and picked != "wgmma":
+        raise ValueError(f"{what}: form 'wgmma' needs K > 0, row strides of multiples of 4 "
+                         "floats and 16-byte aligned operands (8-byte aligned outputs)")
+    return form
+
+
+# ------------------------------------------------------- form T's arithmetic
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 fraction bits) by bits, to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``; inf and NaN pass through."""
+    bits = a.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = bits & 0x7FFFFFFF
+    rounded = (bits & 0x80000000) | ((mag + 0x1000) & 0x7FFFE000)
+    out = torch.where(mag < 0x7F800000, rounded, bits)
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): ``big`` = a in TF32, ``small`` = (a - big) in TF32;
+    where a is not finite, ``small`` carries it (inf or NaN) and ``big`` is
+    +-1 with a's sign, as the kernel's ``split_tf32``: in the three passes
+    the non-finite value then meets the other operand's big, so an inf
+    gives +-inf and inf * 0 NaN, as fp32's product does."""
+    a = a.float()
+    big = torch.where(torch.isfinite(a), tf32_round(a), torch.copysign(torch.ones_like(a), a))
+    return big, tf32_round(a - big)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The plain model of form T's product (``csrc/fused_gemm.cu``): both
+    operands split by :func:`tf32_split`, the passes small*big + big*small,
+    then big*big, summed in fp32 (``passes=1``: one TF32 pass of the
+    operands rounded to TF32). The products of TF32 values are exact in
+    fp32, so the model differs from the kernel only in its order of
+    summation. Used by the tests, never on the main path."""
+    if passes not in (1, 3):
+        raise ValueError(f"tf32x3_matmul: 1 or 3 passes, got {passes}")
+    if passes == 1:
+        return torch.matmul(tf32_round(a), tf32_round(b))
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)) + torch.matmul(a_big, b_big)
+
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -209,12 +312,13 @@ def _devices(what: str, tensors) -> str:
 # ---------------------------------------------------------------- row 14
 def ag_hop_plain(x: torch.Tensor, held: torch.Tensor, out: torch.Tensor, col: int,
                  up: Sequence[torch.Tensor], recv: torch.Tensor, own=None, *, qb: int,
-                 out_block: bool = False) -> None:
+                 out_block: bool = False, matmul=torch.matmul) -> None:
     """The plain version of one all-gather+matmul launch, in place: the held
     shard ``[Ks, N]`` chunk by chunk as the TPU kernel's grid takes it,
     ``out[:, :] += x[:, col + chunk] @ held[chunk]`` (or, ``out_block``,
     ``out[:, col + chunk] = x @ held[chunk]^T``); then the upstream's wire
-    into ``recv`` (decoded) and, with ``own``, ``recv``'s codes into it."""
+    into ``recv`` (decoded) and, with ``own``, ``recv``'s codes into it.
+    ``matmul`` is the product (the tests pass ``tf32x3_matmul``)."""
     Ks = held.shape[0]
     C = _chunks_of(Ks)
     Bk = Ks // C
@@ -222,21 +326,26 @@ def ag_hop_plain(x: torch.Tensor, held: torch.Tensor, out: torch.Tensor, col: in
         h = held[j * Bk:(j + 1) * Bk]
         c0 = col + j * Bk
         if out_block:
-            out[:, c0:c0 + Bk] = torch.matmul(x, h.t())
+            out[:, c0:c0 + Bk] = matmul(x, h.t())
         else:
-            out += torch.matmul(x[:, c0:c0 + Bk], h)
+            out += matmul(x[:, c0:c0 + Bk], h)
     _receive_plain(up, recv, own, qb)
 
 
 def ag_hop(x: torch.Tensor, held: torch.Tensor, out: torch.Tensor, col: int,
            up: Sequence[torch.Tensor], recv: torch.Tensor, own=None, *, qb: int,
-           out_block: bool = False) -> None:
+           out_block: bool = False, form: Optional[str] = None) -> None:
     """One all-gather+matmul launch of ``ds_ag_hop`` on the current stream
     (see :func:`ag_hop_plain`). ``up`` is the upstream rank's wire: its fp32
-    shard, or its codes and scales; it may lie on another card of the group."""
+    shard, or its codes and scales; it may lie on another card of the group.
+    ``form`` names a form of ``FUSED_FORMS`` (None: :func:`fused_form`'s);
+    a named form raises where it cannot take the hop, and on CPU tensors."""
     own = tuple(own) if own is not None else None
     given = [x, held, out, *up, recv, *(own or ())]
     if _devices("ag_hop", given) == "cpu":
+        if form is not None:
+            raise ValueError(f"ag_hop: form {form!r} is a kernel; CPU tensors take the plain "
+                             "version (form=None)")
         return ag_hop_plain(x, held, out, col, up, recv, own, qb=qb, out_block=out_block)
     _fp32_contiguous("ag_hop", x=x, held=held, out=out, recv=recv)
     Ks, N = held.shape
@@ -255,27 +364,31 @@ def ag_hop(x: torch.Tensor, held: torch.Tensor, out: torch.Tensor, col: int,
     code = _check_wire("ag_hop", list(up), own, Ks * N, qb)
     if max(M, N, Ks) >= 2 ** 31:
         raise ValueError("ag_hop: dimensions must fit in int32")
+    picked = _ag_form(x, held, out, out_block)
+    form = _named_form("ag_hop", form, picked)
     dev = out.device
     own_q, own_s = own if own is not None else (None, None)
     op_builder.launch("fused_gemm", "ds_ag_hop", x.data_ptr(), x.stride(0), col, held.data_ptr(),
                       out.data_ptr(), out.stride(0), M, N, Ks, int(out_block),
                       up[0].data_ptr(), _ptr(up[1]) if code else None, recv.data_ptr(),
-                      _ptr(own_q), _ptr(own_s), qb, code,
+                      _ptr(own_q), _ptr(own_s), qb, code, FUSED_FORMS[form],
                       torch.cuda.current_stream(dev).cuda_stream)
     ag_hop.launches += 1
+    ag_hop.launches_by_form[form] += 1
 
 
 ag_hop.launches = 0
+ag_hop.launches_by_form = dict.fromkeys(FUSED_FORMS, 0)
 
 
 # ---------------------------------------------------------------- row 15
 def rs_hop_plain(x: torch.Tensor, w: torch.Tensor, row0: int, up: Sequence[torch.Tensor],
-                 part: torch.Tensor, own=None, *, qb: int) -> None:
+                 part: torch.Tensor, own=None, *, qb: int, matmul=torch.matmul) -> None:
     """The plain version of one matmul+reduce-scatter launch, in place: the
     outgoing row block's partial ``part [Mb, N] = rprev + x[row0 + chunk] @
     w`` chunk by chunk as the TPU kernel's grid takes it, ``rprev`` the
     upstream's decoded wire (zeros without one); then, with ``own``,
-    ``part``'s codes into it."""
+    ``part``'s codes into it. ``matmul`` is the product."""
     Mb = part.shape[0]
     C = _chunks_of(Mb)
     Bm = Mb // C
@@ -289,21 +402,24 @@ def rs_hop_plain(x: torch.Tensor, w: torch.Tensor, row0: int, up: Sequence[torch
                                        accumulate=False)
     for j in range(C):
         r0 = j * Bm
-        part[r0:r0 + Bm] = rprev[r0:r0 + Bm] + torch.matmul(x[row0 + r0:row0 + r0 + Bm], w)
+        part[r0:r0 + Bm] = rprev[r0:r0 + Bm] + matmul(x[row0 + r0:row0 + r0 + Bm], w)
     if own is not None:
         pallas_backend.fused_hop_plain(None, None, None, part.view(-1), own[0], own[1], qb=qb)
 
 
 def rs_hop(x: torch.Tensor, w: torch.Tensor, row0: int, up: Sequence[torch.Tensor],
-           part: torch.Tensor, own=None, *, qb: int) -> None:
+           part: torch.Tensor, own=None, *, qb: int, form: Optional[str] = None) -> None:
     """One matmul+reduce-scatter launch of ``ds_rs_hop`` on the current
     stream (see :func:`rs_hop_plain`). ``up`` (empty at the first hop) is the
     upstream rank's wire: its fp32 partial, or its codes and scales; it may
-    lie on another card of the group."""
+    lie on another card of the group. ``form`` as for :func:`ag_hop`."""
     up = list(up or ())
     own = tuple(own) if own is not None else None
     given = [x, w, *up, part, *(own or ())]
     if _devices("rs_hop", given) == "cpu":
+        if form is not None:
+            raise ValueError(f"rs_hop: form {form!r} is a kernel; CPU tensors take the plain "
+                             "version (form=None)")
         return rs_hop_plain(x, w, row0, up, part, own, qb=qb)
     _fp32_contiguous("rs_hop", x=x, w=w, part=part)
     Mb, N = part.shape
@@ -314,6 +430,8 @@ def rs_hop(x: torch.Tensor, w: torch.Tensor, row0: int, up: Sequence[torch.Tenso
     code = _check_wire("rs_hop", up, own, Mb * N, qb)
     if max(Mb, N, K) >= 2 ** 31:
         raise ValueError("rs_hop: dimensions must fit in int32")
+    picked = _rs_form(x, w, up, part, code)
+    form = _named_form("rs_hop", form, picked)
     dev = part.device
     # the encode's arrival counters, one a group of tiles (at most one a
     # tile; csrc/fused_gemm.cu)
@@ -323,11 +441,13 @@ def rs_hop(x: torch.Tensor, w: torch.Tensor, row0: int, up: Sequence[torch.Tenso
     op_builder.launch("fused_gemm", "ds_rs_hop", x.data_ptr(), row0, w.data_ptr(), Mb, K, N,
                       _ptr(up[0]) if up else None, _ptr(up[1]) if code and up else None,
                       part.data_ptr(), _ptr(own_q), _ptr(own_s), _ptr(counters), qb, code,
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      FUSED_FORMS[form], torch.cuda.current_stream(dev).cuda_stream)
     rs_hop.launches += 1
+    rs_hop.launches_by_form[form] += 1
 
 
 rs_hop.launches = 0
+rs_hop.launches_by_form = dict.fromkeys(FUSED_FORMS, 0)
 
 
 # ------------------------------------------------------------ public fused ops

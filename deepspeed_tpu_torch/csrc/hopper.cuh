@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels that are fed by TMA
 // and multiply with wgmma: grouped_gemm.cu (forms P and D),
-// flash_attention_fwd.cu and flash_attention_bwd.cu (form W). mbarrier waits,
-// TMA tile loads, wgmma shared-memory descriptors and instructions, the fence
-// / commit / wait wrappers, the bulk reduce-add, named barriers, the
-// tensor-map encoder fetched from the driver at run time and the
-// once-per-device shared-memory attribute.
+// flash_attention_fwd.cu and flash_attention_bwd.cu (form W), fused_gemm.cu
+// (form T). mbarrier waits, TMA tile loads, wgmma shared-memory descriptors
+// and instructions, the fence / commit / wait wrappers, the bulk reduce-add,
+// named barriers, the tensor-map encoder fetched from the driver at run time
+// and the once-per-device shared-memory attribute.
 
 #pragma once
 
@@ -429,13 +429,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle: dims and box innermost first,
-// strides in bytes of the dimensions past the first. Boxes past an edge are
-// zero-filled.
+// A tensor map (bf16 unless dtype says otherwise) with the 128-byte swizzle:
+// dims and box innermost first, strides in bytes of the dimensions past the
+// first. Boxes past an edge are zero-filled.
 inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rank,
-                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn(map, dtype, rank, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -123,11 +123,13 @@ KERNELS: Dict[str, Dict[str, list]] = {
     },
     "fused_gemm": {
         # x, ldx, col, held, out, ldo, M, N, Ks, out_block, up_w, up_s, recv, own_q, own_s,
-        # qb, code (0 fp32 | 1 int8 | 2 e4m3), stream
+        # qb, code (0 fp32 | 1 int8 | 2 e4m3), form (collectives/fused_gemm.py FUSED_FORMS),
+        # stream
         "ds_ag_hop": [_P, _I64, _I64, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                      _I64, _I, _P],
-        # x, row0, w, Mb, K, N, up_w, up_s, part, own_q, own_s, counters, qb, code, stream
-        "ds_rs_hop": [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _P],
+                      _I64, _I, _I, _P],
+        # x, row0, w, Mb, K, N, up_w, up_s, part, own_q, own_s, counters, qb, code, form,
+        # stream
+        "ds_rs_hop": [_P, _I64, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     },
 }
 

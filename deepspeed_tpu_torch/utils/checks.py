@@ -298,6 +298,21 @@ def fused_gemm_close(got: torch.Tensor, want: torch.Tensor, K: int):
     return float(err.max()), bool((err <= atol + 1e-5 * want.abs()).all())
 
 
+def fused_gemm_match(got: torch.Tensor, want: torch.Tensor, K: int):
+    """``fused_gemm_close`` where ``want`` may hold inf or NaN: ``got`` has
+    NaN where ``want`` has, the same signed inf where ``want`` has one, and
+    is finite and within ``fused_gemm_close`` elsewhere. Returns (max abs
+    error of the finite elements, ok)."""
+    fin = torch.isfinite(want)
+    inf = torch.isinf(want)
+    same = (torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(got[inf], want[inf])
+            and bool(torch.isfinite(got[fin]).all()))
+    if not bool(fin.any()):
+        return 0.0, same
+    err, ok = fused_gemm_close(got[fin], want[fin], K)
+    return err, ok and same
+
+
 def block_wire(kind: str, values: torch.Tensor, qb: int):
     """A wire slot holding ``values``: the fp32 tensor itself for ``"none"``,
     else int8 / e4m3 codes and fp32 scales over flat blocks of ``qb``, by the

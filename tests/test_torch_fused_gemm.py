@@ -566,3 +566,185 @@ def test_wrappers_refuse_mixed_devices_and_bad_wires():
     (xx, g, a, w), _ = _exact_case()
     _port_forms(xx, g, a, w, group, codec="int8", block_size=BLOCK, fused=True)
     assert (fg.ag_hop.launches, fg.rs_hop.launches, pallas_backend.fused_hop.launches) == before
+
+
+# ------------------------------------------------------------ form choice
+# (M, K, ldx, ldw, tma_ptrs, pair_ptrs, pair_ld) -> the form
+FORM_CASES = {
+    "aligned": ((4096, 512, 2048, 8192, (0, 1024), (2048,), 8192), "wgmma"),
+    "gather_col_off_4": ((4096, 5, 2048, 8192, (0, 1024), (2048,), 8192), "wgmma"),
+    "one_row": ((1, 8, 16, 16, (0, 16), (32,), 16), "wgmma"),
+    "odd_k": ((6, 5, 24, 24, (0, 16), (8,), 24), "wgmma"),
+    "x_stride_off_4": ((6, 8, 26, 24, (0, 16), (8,), 24), "simt"),
+    "odd_n": ((37, 7, 131, 131, (0, 16), (8,), 131), "simt"),
+    "x_base_off_16": ((6, 8, 24, 24, (8, 16), (8,), 24), "simt"),
+    "w_base_off_16": ((6, 8, 24, 24, (16, 20), (8,), 24), "simt"),
+    "out_off_8": ((6, 8, 24, 24, (0, 16), (4,), 24), "simt"),
+    "out_stride_odd": ((6, 8, 24, 24, (0, 16), (8,), 23), "simt"),
+    "out_block_any_out": ((6, 24, 24, 24, (0, 16), (), 0), "wgmma"),
+    "k_zero": ((6, 0, 24, 24, (0, 16), (8,), 24), "simt"),
+    "no_rows": ((0, 8, 24, 24, (0, 16), (8,), 24), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORM_CASES))
+def test_fused_form_boundaries(case):
+    """``fused_form`` from shapes, strides and addresses alone: form T where
+    TMA can describe both operands (row strides multiples of 4 floats,
+    16-byte bases, K > 0) and the float2 epilogue lines up; form S else."""
+    args, want = FORM_CASES[case]
+    assert fg.fused_form(*args) == want
+
+
+@pytest.mark.parametrize("out_block", [False, True], ids=["accumulate", "out_block"])
+def test_fused_form_of_the_gather_hops(out_block):
+    """The wrappers' view of a gather hop (the column offset is not an
+    input: form T describes x whole): contiguous operands of row strides
+    that are multiples of 4 take form T, at M = 1 and at odd Ks; a row
+    stride off 4 floats, odd N and a base off 16 bytes take form S."""
+    Ks, N = 5, 24
+    for M in (1, 6):
+        x = torch.zeros(M, N if out_block else 3 * Ks + 9)
+        held, out = torch.zeros(Ks, N), torch.zeros(M, 3 * Ks if out_block else N)
+        assert fg._ag_form(x, held, out, out_block) == "wgmma", M
+    wide = torch.zeros(6, 26)
+    x = wide[:, :N] if out_block else wide[:, :3 * Ks + 8]
+    assert fg._ag_form(x, torch.zeros(Ks, N), torch.zeros(6, 3 * Ks if out_block else N),
+                       out_block) == "simt"
+    assert fg._ag_form(torch.zeros(6, 131 if out_block else 3 * Ks), torch.zeros(Ks, 131),
+                       torch.zeros(6, 3 * Ks if out_block else 131), out_block) == "simt"
+    buf = torch.zeros(1 + 6 * 24)
+    assert fg._ag_form(buf[1:].view(6, 24) if out_block else torch.zeros(6, 24),
+                       buf[1:1 + Ks * N].view(Ks, N) if not out_block else torch.zeros(Ks, N),
+                       torch.zeros(6, 3 * Ks if out_block else N), out_block) == "simt"
+
+
+def test_fused_form_of_the_reduce_scatter_hops():
+    """Row 15: x [*, K] and w [K, N] with K and N multiples of 4 take form
+    T, odd K or N form S; an exact upstream partial off 8 bytes form S."""
+    x, w, part = torch.zeros(20, 8), torch.zeros(8, 24), torch.zeros(6, 24)
+    assert fg._rs_form(x, w, (), part, 0) == "wgmma"
+    assert fg._rs_form(x, w, (torch.zeros(6, 24),), part, 0) == "wgmma"
+    assert fg._rs_form(torch.zeros(20, 7), torch.zeros(7, 24), (), part, 0) == "simt"
+    assert fg._rs_form(x, torch.zeros(8, 131), (), torch.zeros(6, 131), 0) == "simt"
+    off = torch.zeros(1 + 6 * 24)[1:].view(6, 24)
+    assert fg._rs_form(x, w, (off,), part, 0) == "simt"
+    codes = torch.zeros(1 + 6 * 24, dtype=torch.int8)[1:]
+    assert fg._rs_form(x, w, (codes, torch.zeros(3)), part, 1) == "wgmma"
+
+
+def test_named_forms_raise_on_cpu_tensors(spies):
+    """A form is a kernel: naming one on CPU tensors raises and runs no plain
+    version; ``form=None`` takes the plain version."""
+    x, held, y = torch.zeros(4, 24), torch.zeros(2, 8), torch.zeros(4, 8)
+    for form in fg.FUSED_FORMS:
+        with pytest.raises(ValueError, match="is a kernel"):
+            fg.ag_hop(x, held, y, 0, (held,), torch.zeros(2, 8), qb=16, form=form)
+        with pytest.raises(ValueError, match="is a kernel"):
+            fg.rs_hop(torch.zeros(4, 8), torch.zeros(8, 8), 0, (), torch.zeros(2, 8), qb=16,
+                      form=form)
+    assert spies == {"ag": 0, "rs": 0}
+    fg.ag_hop(x, held, y, 0, (held,), torch.zeros(2, 8), qb=16)
+    assert spies == {"ag": 1, "rs": 0}
+
+
+# ------------------------------------------------------------ form T's arithmetic
+def test_tf32_round_by_bits():
+    """Round to nearest, ties away from zero, at TF32's 10 fraction bits;
+    inf, NaN, zeros and subnormals' bit patterns handled as the hardware's
+    ``cvt.rna.tf32.f32``."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    vals = [one, one + ulp / 2, one + ulp / 4, one + 3 * ulp / 4, -(one + ulp / 2), 3.0e38,
+            float("inf"), -float("inf"), 0.0, -0.0, 2.0 ** -136, 2.0 ** -140, 3 * 2.0 ** -137]
+    # subnormals round at the same bit: 2^-136 is TF32's least, 2^-140 under its half
+    want = [one, one + ulp, one, one + ulp, -(one + ulp), None, float("inf"), -float("inf"),
+            0.0, -0.0, 2.0 ** -136, 0.0, 2.0 ** -135]
+    got = fg.tf32_round(torch.tensor(vals, dtype=torch.float32))
+    for g_, w_, v in zip(got.tolist(), want, vals):
+        if w_ is not None:
+            assert g_ == w_ and np.signbit(g_) == np.signbit(w_), (v, g_, w_)
+    bits = got.view(torch.int32).numpy().astype(np.int64) & 0x1FFF
+    assert (bits[np.isfinite(got.numpy())] == 0).all()
+    assert torch.isnan(fg.tf32_round(torch.tensor([float("nan")]))).all()
+    big, small = fg.tf32_split(torch.tensor([float("inf"), -float("inf"), 1.0 + 2.0 ** -20]))
+    # a non-finite value rides in small, big keeping its sign (the kernel's split_tf32)
+    assert big[:2].tolist() == [1.0, -1.0] and small[:2].tolist() == [float("inf"), -float("inf")]
+    assert big[2] + small[2] == 1.0 + 2.0 ** -20
+
+
+def _model_payload(kind, rng, shape):
+    if kind == "ints":
+        return _ints(rng, shape)
+    a = rng.normal(size=shape).astype(np.float32)
+    if kind == "wide":  # exponents from 2^-20 to 2^20
+        a = (a * np.exp2(rng.integers(-20, 21, size=shape))).astype(np.float32)
+    return a
+
+
+MODEL_M, MODEL_KS, MODEL_N, MODEL_ROWS = 16, 64, 48, 16
+
+
+@functools.lru_cache(None)
+def _model_case(kind):
+    rng = np.random.default_rng({"normal": 21, "wide": 22, "ints": 23, "nonfinite": 24}[kind])
+    K_ = N_DEV * MODEL_KS
+    x = _model_payload(kind, rng, (MODEL_M, K_))
+    w = _model_payload(kind, rng, (K_, MODEL_N))
+    g = _model_payload(kind, rng, (MODEL_M, MODEL_N))
+    a = _model_payload(kind, rng, (MODEL_ROWS, K_))
+    if kind == "nonfinite":  # +-inf meeting -inf and 0 at one k, -inf, NaN, in every operand
+        x[3, 10], w[10, 5], w[10, 7], x[7, 150], w[200, 11], x[12, 40] = \
+            np.inf, -np.inf, 0.0, -np.inf, np.inf, np.nan
+        g[3, 5], g[4, 7], g[12, 40] = np.inf, np.inf, np.nan
+        a[3, 10], a[7, 150], a[12, 40] = -np.inf, np.inf, np.nan
+    return (x, g, a, w), _jax_forms(x, g, a, w, fused=True)
+
+
+def _with_model(monkeypatch, passes):
+    """The CPU ranks' hops through the plain model of form T's product."""
+    mm = functools.partial(fg.tf32x3_matmul, passes=passes)
+    monkeypatch.setattr(fg, "ag_hop_plain", functools.partial(fg.ag_hop_plain, matmul=mm))
+    monkeypatch.setattr(fg, "rs_hop_plain", functools.partial(fg.rs_hop_plain, matmul=mm))
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kind", ["normal", "wide", "ints", "nonfinite"])
+def test_tf32x3_model_matches_jax_hops(group, monkeypatch, kind, form):
+    """The three ops with every hop's product through ``tf32x3_matmul`` (the
+    plain model of form T) against JAX's fused hop kernels in interpret mode:
+    within the unchanged ``fused_gemm_close`` on normal payloads and on
+    payloads whose exponents span 2^-20 to 2^20, bit for bit on integer
+    payloads (small parts 0, sums exact); with +-inf and NaN operands, JAX's
+    NaNs and signed infs where fp32 has them and the rest within the check."""
+    from deepspeed_tpu_torch.utils.checks import fused_gemm_close, fused_gemm_match
+
+    (x, g, a, w), want = _model_case(kind)
+    _with_model(monkeypatch, 3)
+    got = _port_forms(x, g, a, w, group, fused=True)[form]
+    K_ = MODEL_N if form == "out_block" else N_DEV * MODEL_KS
+    pairs = [(got, want[form])] if form == "reduce_scatter" else list(zip(got, want[form]))
+    for mine, theirs in pairs:
+        if kind == "ints":
+            np.testing.assert_array_equal(mine, theirs)
+        else:
+            check = fused_gemm_match if kind == "nonfinite" else fused_gemm_close
+            err, ok = check(torch.from_numpy(np.asarray(mine)),
+                            torch.from_numpy(np.asarray(theirs)), K_)
+            assert ok, err
+
+
+def test_one_tf32_pass_fails_the_check_and_three_pass():
+    """The check tells TF32 from fp32: on a phase-6c-like product (normal
+    payloads, K = 512) one TF32 pass exceeds ``fused_gemm_close`` against
+    the plain fp32 product, and the three-pass model stays within it."""
+    from deepspeed_tpu_torch.utils.checks import fused_gemm_close
+
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.normal(size=(256, 512)).astype(np.float32))
+    held = torch.from_numpy(rng.normal(size=(512, 1024)).astype(np.float32))
+    want = torch.matmul(x, held)
+    one_err, one_ok = fused_gemm_close(fg.tf32x3_matmul(x, held, passes=1), want, 512)
+    three_err, three_ok = fused_gemm_close(fg.tf32x3_matmul(x, held), want, 512)
+    assert not one_ok and three_ok
+    assert one_err > 100 * three_err

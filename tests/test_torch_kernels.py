@@ -80,12 +80,17 @@ launch at a time to their plain versions on the same inputs, both gather
 forms and the reduce-scatter's first and later hops, over the exact, int8
 and e4m3 wires, M (or Mb) = 1, odd Ks and N, tile edges: on integer
 payloads everything bit for bit; on normal ones the products by
-``fused_gemm_close`` (1e-5 relative, and 1e-6 x sqrt(K) of the largest |output|: the
-kernel sums K products in one FMA chain, cuBLAS in its own order), the
-received shard and every code and scale bit for bit (the reduce-scatter's
-codes against the plain block math of the kernel's own partial). The ops
-over 2 and 4 ranks equal their plain runs bit for bit with n - 1 launches of
-each row a rank.
+``fused_gemm_close`` (1e-5 relative, and 1e-6 x sqrt(K) of the largest
+|output|: form S sums K products in one FMA chain, form T three TF32 passes
+with ~22 bits a product, cuBLAS in its own order), the received shard and
+every code and scale bit for bit (the reduce-scatter's codes against the
+plain block math of the kernel's own partial). Each form (T "wgmma", S
+"simt") is named at every ``FG_SHAPES`` case and phase 6c's four hop shapes
+(naming form T where TMA cannot describe the hop raises), gives the same
+bits on a second run, and the wrapper picks form T for aligned shapes and
+form S for odd ones; +-inf and NaN operands give fp32's infs and NaNs
+through each form. The ops over 2 and 4 ranks equal their plain runs bit
+for bit with n - 1 launches of each row a rank.
 """
 
 import importlib
@@ -133,6 +138,7 @@ from deepspeed_tpu_torch.utils.checks import (
     check_sparse_kernels,
     flash_inputs,
     fused_gemm_close,
+    fused_gemm_match,
     fused_gemm_qb,
     grouped_inputs,
     plain_collective_kernels,
@@ -1262,6 +1268,226 @@ def test_fused_gemm_ops_match_plain(cuda_device, n, wire):
         for r in range(n):
             assert torch.equal(got[0][r], x[r] @ exact)
             assert torch.equal(got[1][r], g[r] @ exact.t())
+
+
+# phase 6c's four hop shapes (chip_smoke.py: 4 ranks at llama3-1b's MLP widths):
+# row 14 accumulate (M, Ks, N), row 14 out_block, row 15's dw and row_parallel_linear
+# (Mb, K, N)
+FG_PHASE_AG = ((4096, 512, 8192),)
+FG_PHASE_RS = ((512, 4096, 8192), (1024, 2048, 2048))
+FG_FORMS = ("wgmma", "simt")
+
+
+def _fg_takes(form, x, held_or_w, out, out_block=None):
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    if form == "simt":
+        return True
+    if out_block is None:
+        return fg._rs_form(x, held_or_w, (), out, 0) == "wgmma"
+    return fg._ag_form(x, held_or_w, out, out_block) == "wgmma"
+
+
+def _ag_form_case(dev, form, out_block, wire, shape, ints, seed):
+    """One row-14 launch through the named form against the plain version:
+    (product ok, received shard bits differing, own wire bits differing,
+    the outputs); None where the form does not take the shape (after
+    checking that naming it raises)."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    M, Ks, N = shape
+    rng = np.random.default_rng(seed)
+    held = _fg_payload(rng, (Ks, N), ints, dev)
+    x = _fg_payload(rng, (M, N) if out_block else (M, 3 * Ks), ints, dev)
+    y0 = _fg_payload(rng, (M, 3 * Ks) if out_block else (M, N), ints, dev)
+    upstream = _fg_payload(rng, (Ks, N), False, dev)
+    qb = fused_gemm_qb(wire, Ks, N, 64)
+    up = block_wire(wire, upstream, qb)
+    if not _fg_takes(form, x, held, y0, out_block):
+        with pytest.raises(ValueError, match="form 'wgmma' needs"):
+            fg.ag_hop(x, held, y0.clone(), Ks, up, torch.empty(Ks, N, device=dev), qb=qb,
+                      out_block=out_block, form=form)
+        return None
+
+    def run(fn, **kw):
+        y, recv = y0.clone(), torch.full((Ks, N), float("nan"), device=dev)
+        own = None
+        if wire != "none":
+            own = (torch.empty(Ks * N, dtype=up[0].dtype, device=dev),
+                   torch.empty(Ks * N // qb, device=dev))
+        fn(x, held, y, Ks, up, recv, own, qb=qb, out_block=out_block, **kw)
+        return y, recv, own
+
+    before = dict(fg.ag_hop.launches_by_form)
+    got = run(fg.ag_hop, form=form)
+    assert fg.ag_hop.launches_by_form[form] == before[form] + 1
+    want = run(fg.ag_hop_plain)
+    torch.cuda.synchronize()
+    (y, recv, own), (wy, wrecv, wown) = got, want
+    ok = bits_differ([y], [wy]) == 0 if ints else fused_gemm_close(y, wy, N if out_block else Ks)[1]
+    own_bad = bits_differ(list(own), list(wown)) if own is not None else 0
+    return ok, bits_differ([recv], [wrecv]), own_bad, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ints", [True, False], ids=["ints", "normal"])
+@pytest.mark.parametrize("shape", FG_SHAPES + FG_PHASE_AG)
+@pytest.mark.parametrize("wire", FG_WIRES)
+@pytest.mark.parametrize("out_block", [False, True], ids=["accumulate", "out_block"])
+@pytest.mark.parametrize("form", FG_FORMS)
+def test_ag_hop_forms_match_plain(cuda_device, form, out_block, wire, shape, ints):
+    """Each row-14 form by name against the plain version (form T only where
+    it takes the shape; elsewhere naming it raises): the product bit for bit
+    on integer payloads, else by ``fused_gemm_close``; the received shard and
+    the re-encoded own wire bit for bit; the same bits on a second run."""
+    case = _ag_form_case(cuda_device, form, out_block, wire, shape, ints, sum(shape))
+    if case is None:
+        return
+    ok, recv_bad, own_bad, (y, recv, own) = case
+    assert ok and recv_bad == 0 and own_bad == 0
+    again = _ag_form_case(cuda_device, form, out_block, wire, shape, ints, sum(shape))[3]
+    assert bits_differ([y, recv, *(own or ())], [again[0], again[1], *(again[2] or ())]) == 0
+
+
+def _rs_form_case(dev, form, first, wire, shape, ints, seed):
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    Mb, K, N = shape[:3]
+    block = shape[3] if len(shape) > 3 else 64
+    rng = np.random.default_rng(seed)
+    x = _fg_payload(rng, (3 * Mb + 5, K), ints, dev)
+    w = _fg_payload(rng, (K, N), ints, dev)
+    qb = fused_gemm_qb(wire, Mb, N, block)
+    up = () if first else block_wire(wire, _fg_payload(rng, (Mb, N), ints, dev), qb)
+    if not _fg_takes(form, x, w, torch.empty(Mb, N, device=dev)):
+        with pytest.raises(ValueError, match="form 'wgmma' needs"):
+            fg.rs_hop(x, w, Mb + 3, up, torch.empty(Mb, N, device=dev), qb=qb, form=form)
+        return None
+
+    def run(fn, **kw):
+        part = torch.full((Mb, N), float("nan"), device=dev)
+        own = None
+        if wire != "none":
+            own = (torch.empty(Mb * N, dtype=hops.WIRE_DTYPES[wire], device=dev),
+                   torch.empty(Mb * N // qb, device=dev))
+        fn(x, w, Mb + 3, up, part, own, qb=qb, **kw)
+        return part, own
+
+    before = dict(fg.rs_hop.launches_by_form)
+    got = run(fg.rs_hop, form=form)
+    assert fg.rs_hop.launches_by_form[form] == before[form] + 1
+    want = run(fg.rs_hop_plain)
+    torch.cuda.synchronize()
+    (part, own), (wpart, wown) = got, want
+    ok = bits_differ([part], [wpart]) == 0 if ints else fused_gemm_close(part, wpart, K)[1]
+    if own is not None:
+        ok = ok and bits_differ(list(own), list(block_wire(wire, part, qb))) == 0
+        ok = ok and (not ints or bits_differ(list(own), list(wown)) == 0)
+    return ok, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ints", [True, False], ids=["ints", "normal"])
+@pytest.mark.parametrize("shape", FG_SHAPES + RS_GROUP_SHAPES + FG_PHASE_RS)
+@pytest.mark.parametrize("wire", FG_WIRES)
+@pytest.mark.parametrize("first", [True, False], ids=["first_hop", "later_hop"])
+@pytest.mark.parametrize("form", FG_FORMS)
+def test_rs_hop_forms_match_plain(cuda_device, form, first, wire, shape, ints):
+    """Each row-15 form by name against the plain version: ``part`` bit for
+    bit on integer payloads, else by ``fused_gemm_close``; its codes equal
+    the plain block math of the kernel's own partial (and the plain
+    version's on integers); the same bits on a second run."""
+    case = _rs_form_case(cuda_device, form, first, wire, shape, ints, 3 * sum(shape))
+    if case is None:
+        return
+    ok, (part, own) = case
+    assert ok
+    again = _rs_form_case(cuda_device, form, first, wire, shape, ints, 3 * sum(shape))[1]
+    assert bits_differ([part, *(own or ())], [again[0], *(again[1] or ())]) == 0
+
+
+@pytest.mark.cuda
+def test_fused_gemm_wrappers_pick_form_t_where_tma_describes_the_hop(cuda_device):
+    """Without a form named: aligned shapes run form T, odd N and a row
+    stride off 4 floats form S, one launch counted by form."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    dev = cuda_device
+    for shape, want in (((6, 5, 24), "wgmma"), ((37, 7, 131), "simt")):
+        M, Ks, N = shape
+        x = torch.ones(M, 4 * Ks if N % 4 == 0 else 3 * Ks, device=dev)
+        held, y = torch.ones(Ks, N, device=dev), torch.zeros(M, N, device=dev)
+        before = dict(fg.ag_hop.launches_by_form)
+        fg.ag_hop(x, held, y, Ks, (held,), torch.empty_like(held), qb=Ks * N)
+        assert {f: fg.ag_hop.launches_by_form[f] - before[f] for f in FG_FORMS} == \
+            {f: int(f == want) for f in FG_FORMS}
+        assert torch.equal(y, torch.full_like(y, float(Ks)))
+    for K, want in ((8, "wgmma"), (7, "simt")):
+        x, w, part = torch.ones(12, K, device=dev), torch.ones(K, 24, device=dev), \
+            torch.empty(4, 24, device=dev)
+        before = dict(fg.rs_hop.launches_by_form)
+        fg.rs_hop(x, w, 4, (), part, qb=96)
+        assert {f: fg.rs_hop.launches_by_form[f] - before[f] for f in FG_FORMS} == \
+            {f: int(f == want) for f in FG_FORMS}
+        assert torch.equal(part, torch.full_like(part, float(K)))
+
+
+# a shape form T takes, the gather's column 2 past a 4-float boundary (the
+# first box's skipped columns zeroed), the reduce-scatter's rows past row 0
+FG_NONFINITE = (130, 64, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["accumulate", "out_block", "reduce_scatter"])
+@pytest.mark.parametrize("form", FG_FORMS)
+def test_fused_gemm_forms_carry_non_finite_operands_as_fp32(cuda_device, form, op):
+    """+-inf and NaN in each operand, an inf meeting -inf and 0 at one k, and
+    infs just outside the hop's columns or rows: each form by name (exact
+    wire) has the plain version's NaNs and signed infs where it has them and
+    the rest within ``fused_gemm_close`` (``fused_gemm_match``)."""
+    from deepspeed_tpu_torch.collectives import fused_gemm as fg
+
+    M, Ks, N = FG_NONFINITE
+    inf, nan = float("inf"), float("nan")
+    dev = cuda_device
+    rng = np.random.default_rng(41)
+    if op == "reduce_scatter":
+        row0 = M + 3
+        x = _fg_payload(rng, (3 * M + 5, Ks), False, dev)
+        w = _fg_payload(rng, (Ks, N), False, dev)
+        prev = _fg_payload(rng, (M, N), False, dev)
+        x[row0 + 3, 10], w[10, 5], w[10, 7], x[row0 + 7, 20] = inf, -inf, 0.0, -inf
+        w[30, 11], x[row0 + 12, 40], x[row0 - 1, 3], prev[20, 20] = inf, nan, inf, inf
+
+        def run(fn, **kw):
+            part = torch.full((M, N), nan, device=dev)
+            fn(x, w, row0, (prev,), part, qb=M * N, **kw)
+            return part
+
+        got, want = run(fg.rs_hop, form=form), run(fg.rs_hop_plain)
+    else:
+        out_block = op == "out_block"
+        col = Ks + 2
+        held = _fg_payload(rng, (Ks, N), False, dev)
+        x = _fg_payload(rng, (M, N) if out_block else (M, 3 * Ks), False, dev)
+        y0 = _fg_payload(rng, (M, 3 * Ks) if out_block else (M, N), False, dev)
+        if out_block:  # contraction over N
+            x[3, 5], held[10, 5], x[4, 7], held[10, 7], x[12, 40], held[30, 11] = \
+                inf, -inf, inf, 0.0, nan, inf
+        else:
+            x[3, col + 10], held[10, 5], held[10, 7], x[7, col + 20] = inf, -inf, 0.0, -inf
+            held[30, 11], x[12, col + 40], x[5, col - 1], x[6, col + Ks] = inf, nan, inf, -inf
+
+        def run(fn, **kw):
+            y, recv = y0.clone(), torch.empty(Ks, N, device=dev)
+            fn(x, held, y, col, (held,), recv, qb=Ks * N, out_block=out_block, **kw)
+            return y
+
+        got, want = run(fg.ag_hop, form=form), run(fg.ag_hop_plain)
+    torch.cuda.synchronize()
+    assert int((~torch.isfinite(want)).sum()) > 0
+    err, ok = fused_gemm_match(got, want, N if op == "out_block" else Ks)
+    assert ok, (err, int((torch.isnan(got) != torch.isnan(want)).sum()))
 
 
 @pytest.mark.cuda
